@@ -27,43 +27,24 @@
 // of launches:
 //   gn_partial   per-(L tile, group) sums and sums of squares (stage 1),
 //   gn_finalize  per-(batch, group) mean and rstd, in a fixed order (stage 2),
-//   gn_silu_conv3 one 32-row x 64-channel output tile per CTA. K chunks of
+//   conv3        (resnet_common.cuh, shared with the backward's data gradient)
+//                one 32-row x 64-channel output tile per CTA. K chunks of
 //                the raw input rows l-1 .. l+32 and of the three weight taps
 //                arrive by cp.async, double-buffered, so the next chunk is in
 //                flight while the current one is multiplied; the input tile is
 //                normalised and activated in shared memory, so the activated
 //                tensor never reaches device memory. bf16 runs on the tensor
 //                cores (WMMA m16n16k16, f32 accumulate), f32 on CUDA-core FMAs,
-//   modulate     the elementwise modulation epilogue, in place.
+//   modulate     the elementwise modulation epilogue (in place unless the
+//                caller keeps the unmodulated item for the backward).
 // Tiling the output over channels (BN = 64) gives C/64 CTAs per row tile, so
 // the deep levels at batch 1 still launch 64..256 CTAs. All reductions run in
 // a fixed order, so the result is deterministic.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "resnet_common.cuh"
 
 namespace {
 
-constexpr int BM = 32;        // output positions per CTA
-constexpr int BN = 64;        // output channels per CTA
-constexpr int THREADS = 128;  // 4 warps
-constexpr int LDB = BN + 8;   // smem row pitch of a weight tap (elements)
-constexpr int LDC = BN + 4;   // smem row pitch of the f32 output tile
-
 constexpr int STATS_THREADS = 256;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -117,191 +98,10 @@ __global__ void gn_finalize_kernel(const float* __restrict__ partial, float2* __
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// out[b, l, co] = sum_t sum_ci act(x[b, l - 1 + t, ci]) * w[t, ci, co] + bias[co]
-//                 (+ res[b, l, co] when RESIDUAL),
-// act(v) = SiLU((v - mean) * rstd * gamma + beta), zero outside [0, L).
-// grid (ceil(L / BM), ceil(C / BN), B), THREADS threads. Needs C % 8 == 0 and
-// 16-byte aligned x and w (checked by the wrapper).
-template <typename T, bool RESIDUAL>
-__global__ void __launch_bounds__(THREADS)
-gn_silu_conv3_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
-                     const T* __restrict__ gamma, const T* __restrict__ beta,
-                     const T* __restrict__ w, const T* __restrict__ bias,
-                     const T* __restrict__ res, T* __restrict__ out, int L, int C, int G) {
-  constexpr bool TC = sizeof(T) == 2;     // bf16 runs on the tensor cores
-  constexpr int BK = TC ? 32 : 16;        // input channels per K chunk
-  constexpr int LDA = BK + 16;            // smem row pitch of the input tile (elements)
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte copy
-  constexpr int A_ELEMS = (BM + 2) * LDA;
-  constexpr int W_ELEMS = 3 * BK * LDB;
-  constexpr int A_VECS = (BM + 2) * BK / VEC;
-  constexpr int W_VECS = 3 * BK * BN / VEC;
-  constexpr int C_BYTES = TC ? BM * LDC * 4 : 0;
-  // Two stages of [input tile | weight tile], then the f32 output tile (bf16).
-  __shared__ __align__(128) unsigned char smem[2 * (A_ELEMS + W_ELEMS) * sizeof(T) + C_BYTES];
-  T* As[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + A_ELEMS + W_ELEMS};
-  T* Ws[2] = {As[0] + A_ELEMS, As[1] + A_ELEMS};
-
-  const int l0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int cpg = C / G;
-  const T* xb = x + (size_t)b * L * C;
-  const float2* st = stats + (size_t)b * G;
-
-  // Stage K chunk k0 into buffer s with cp.async: raw input rows l0-1 .. l0+BM
-  // (zero outside [0, L) and past C) and the three weight taps' [BK, BN]
-  // blocks (zero past C). The copies are in flight while the previous chunk is
-  // multiplied.
-  auto stage = [&](int k0, int s) {
-    for (int v = tid; v < A_VECS; v += THREADS) {
-      const int r = v / (BK / VEC), kk = (v % (BK / VEC)) * VEC;
-      const int l = l0 - 1 + r, c = k0 + kk;
-      const bool ok = l >= 0 && l < L && c < C;
-      cp_async16(As[s] + r * LDA + kk, ok ? xb + (size_t)l * C + c : xb, ok);
-    }
-    for (int v = tid; v < W_VECS; v += THREADS) {
-      const int row = v / (BN / VEC), nn = (v % (BN / VEC)) * VEC;
-      const int t = row / BK, kk = row % BK;
-      const int c = k0 + kk, co = n0 + nn;
-      const bool ok = c < C && co < C;
-      cp_async16(Ws[s] + row * LDB + nn, ok ? w + ((size_t)t * C + c) * C + co : w, ok);
-    }
-    cp_async_commit();
-  };
-
-  // bf16: warp (wm, wn) owns rows wm*16.., cols wn*32.. as two 16x16 fragments.
-  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc_tc[2];
-  // f32: thread (tr, tc) owns rows tr*4.., cols tc*4.. in registers.
-  const int tr = tid / 16, tcol = tid % 16;
-  float acc[4][4];
-  if constexpr (TC) {
-    nvcuda::wmma::fill_fragment(acc_tc[0], 0.f);
-    nvcuda::wmma::fill_fragment(acc_tc[1], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  stage(0, 0);
-  for (int k0 = 0, s = 0; k0 < C; k0 += BK, s ^= 1) {
-    if (k0 + BK < C) {
-      stage(k0 + BK, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // Normalise and activate the input tile in place. THREADS is a multiple
-    // of BK, so each thread sees one channel and loads its vectors once.
-    {
-      const int kk = tid % BK, c = k0 + kk;
-      float mean = 0.f, rstd = 0.f, g = 0.f, be = 0.f;
-      if (c < C) {
-        const float2 ms = st[c / cpg];
-        mean = ms.x;
-        rstd = ms.y;
-        g = to_f32(gamma[c]);
-        be = to_f32(beta[c]);
-      }
-      for (int r = tid / BK; r < BM + 2; r += THREADS / BK) {
-        const int l = l0 - 1 + r;
-        float v = 0.f;
-        if (l >= 0 && l < L && c < C) {
-          const float n = (to_f32(As[s][r * LDA + kk]) - mean) * rstd * g + be;
-          v = n / (1.f + expf(-n));
-        }
-        As[s][r * LDA + kk] = from_f32<T>(v);
-      }
-    }
-    __syncthreads();
-
-    if constexpr (TC) {
-      const __nv_bfloat16* A = reinterpret_cast<const __nv_bfloat16*>(As[s]);
-      const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(Ws[s]);
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                 nvcuda::wmma::row_major> a;
-          // Output row i reads activated row i + t (position l - 1 + t).
-          nvcuda::wmma::load_matrix_sync(a, A + (wm * 16 + t) * LDA + kk, LDA);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                   nvcuda::wmma::row_major> bf;
-            nvcuda::wmma::load_matrix_sync(bf, W + (t * BK + kk) * LDB + wn * 32 + j * 16, LDB);
-            nvcuda::wmma::mma_sync(acc_tc[j], a, bf, acc_tc[j]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          float av[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = to_f32(As[s][(tr * 4 + i + t) * LDA + kk]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = to_f32(Ws[s][(t * BK + kk) * LDB + tcol * 4 + j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // buffer s is refilled by the next iteration's stage()
-  }
-
-  // Epilogue: + bias (+ residual) in f32, one rounding to the activation type.
-  T* ob = out + (size_t)b * L * C;
-  const T* rb = RESIDUAL ? res + (size_t)b * L * C : nullptr;
-  auto store = [&](int i, int j, float v) {
-    const int l = l0 + i, co = n0 + j;
-    if (l < L && co < C) {
-      v += to_f32(bias[co]);
-      if (RESIDUAL) v = to_f32(rb[(size_t)l * C + co]) + v;
-      ob[(size_t)l * C + co] = from_f32<T>(v);
-    }
-  };
-  if constexpr (TC) {
-    float* Cs = reinterpret_cast<float*>(smem + 2 * (A_ELEMS + W_ELEMS) * sizeof(T));
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 32 + j * 16, acc_tc[j], LDC,
-                                      nvcuda::wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
-      const int i = idx / BN, j = idx % BN;
-      store(i, j, Cs[i * LDC + j]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) store(tr * 4 + i, tcol * 4 + j, acc[i][j]);
-  }
-}
-
-// y <- y + ((y - mean) * rstd * gamma + beta) * (1 + scale[b, c]) + shift[b, c], in place.
+// out <- y + ((y - mean) * rstd * gamma + beta) * (1 + scale[b, c]) + shift[b, c];
+// out may be y itself.
 template <typename T>
-__global__ void modulate_kernel(T* __restrict__ y, const float2* __restrict__ stats,
+__global__ void modulate_kernel(const T* y, T* out, const float2* __restrict__ stats,
                                 const T* __restrict__ gamma, const T* __restrict__ beta,
                                 const T* __restrict__ scale, const T* __restrict__ shift,
                                 int L, int C, int G, size_t total) {
@@ -313,7 +113,7 @@ __global__ void modulate_kernel(T* __restrict__ y, const float2* __restrict__ st
     const float2 ms = stats[b * G + c / cpg];
     const float v = to_f32(y[idx]);
     const float hm = (v - ms.x) * ms.y * to_f32(gamma[c]) + to_f32(beta[c]);
-    y[idx] = from_f32<T>(v + hm * (1.f + to_f32(scale[b * C + c])) + to_f32(shift[b * C + c]));
+    out[idx] = from_f32<T>(v + hm * (1.f + to_f32(scale[b * C + c])) + to_f32(shift[b * C + c]));
   }
 }
 
@@ -329,29 +129,35 @@ int gn_stats(const T* x, float* partial, float2* stats, int B, int L, int C, int
   return (int)cudaGetLastError();
 }
 
+// stats holds the three stages' statistics, [3, B, G] float2: of x, of h and
+// of y. The backward reads them (and h and y) again.
 template <typename T>
 int item_forward(const T* x, const T* gn1s, const T* gn1b, const T* k1, const T* c1b,
                  const T* gn2s, const T* gn2b, const T* k2, const T* c2b, const T* mods,
-                 const T* modb, const T* mgs, const T* mgb, T* h, T* out, float* partial,
+                 const T* modb, const T* mgs, const T* mgb, T* h, T* y, T* out, float* partial,
                  float2* stats, int B, int L, int C, int G, int rows_per_tile, float eps,
                  int use_modulation, cudaStream_t stream) {
   const dim3 grid((L + BM - 1) / BM, (C + BN - 1) / BN, B);
-  int err = gn_stats<T>(x, partial, stats, B, L, C, G, rows_per_tile, eps, stream);
+  float2* stats1 = stats;
+  float2* stats2 = stats + (size_t)B * G;
+  float2* stats3 = stats + (size_t)2 * B * G;
+  int err = gn_stats<T>(x, partial, stats1, B, L, C, G, rows_per_tile, eps, stream);
   if (err) return err;
-  gn_silu_conv3_kernel<T, false><<<grid, THREADS, 0, stream>>>(x, stats, gn1s, gn1b, k1, c1b,
-                                                               nullptr, h, L, C, G);
+  conv3_kernel<T, kForward><<<grid, THREADS, 0, stream>>>(x, stats1, gn1s, gn1b, k1, c1b,
+                                                          nullptr, h, L, C, G);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = gn_stats<T>(h, partial, stats, B, L, C, G, rows_per_tile, eps, stream))) return err;
-  gn_silu_conv3_kernel<T, true><<<grid, THREADS, 0, stream>>>(h, stats, gn2s, gn2b, k2, c2b, x,
-                                                              out, L, C, G);
+  if ((err = gn_stats<T>(h, partial, stats2, B, L, C, G, rows_per_tile, eps, stream)))
+    return err;
+  conv3_kernel<T, kForwardResidual><<<grid, THREADS, 0, stream>>>(h, stats2, gn2s, gn2b, k2,
+                                                                  c2b, x, y, L, C, G);
   if ((err = (int)cudaGetLastError())) return err;
   if (!use_modulation) return 0;
-  if ((err = gn_stats<T>(out, partial, stats, B, L, C, G, rows_per_tile, eps, stream)))
+  if ((err = gn_stats<T>(y, partial, stats3, B, L, C, G, rows_per_tile, eps, stream)))
     return err;
   const size_t total = (size_t)B * L * C;
   const size_t want = (total + 255) / 256;
   const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
-  modulate_kernel<T><<<blocks, 256, 0, stream>>>(out, stats, mgs, mgb, mods, modb, L, C, G,
+  modulate_kernel<T><<<blocks, 256, 0, stream>>>(y, out, stats3, mgs, mgb, mods, modb, L, C, G,
                                                  total);
   return (int)cudaGetLastError();
 }
@@ -359,15 +165,18 @@ int item_forward(const T* x, const T* gn1s, const T* gn1b, const T* k1, const T*
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// x, h, out: [B, L, C]; k1, k2: [3, C, C] (tap, in, out); vectors: [C];
+// x, h, y, out: [B, L, C]; k1, k2: [3, C, C] (tap, in, out); vectors: [C];
 // mods, modb: [B, C] (ignored unless use_modulation); partial: f32
-// [B, ceil(L / rows_per_tile), G, 2]; stats: f32 [B, G, 2]. Returns the first
-// CUDA error code seen after a launch, 0 on success. Launches on `stream`.
+// [B, ceil(L / rows_per_tile), G, 2]; stats: f32 [3, B, G, 2]. y receives the
+// item before its modulation and out the item; without modulation only y is
+// written; with it, y and out may be one buffer (the caller that keeps
+// nothing for a backward passes the same pointer). Returns the first CUDA
+// error code seen after a launch, 0 on success. Launches on `stream`.
 extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, const void* gn1b,
                                    const void* k1, const void* c1b, const void* gn2s,
                                    const void* gn2b, const void* k2, const void* c2b,
                                    const void* mods, const void* modb, const void* mgs,
-                                   const void* mgb, void* h, void* out, void* partial,
+                                   const void* mgb, void* h, void* y, void* out, void* partial,
                                    void* stats, int B, int L, int C, int G, int rows_per_tile,
                                    float eps, int use_modulation, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -378,16 +187,16 @@ extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, c
     return item_forward<T>(
         (const T*)x, (const T*)gn1s, (const T*)gn1b, (const T*)k1, (const T*)c1b, (const T*)gn2s,
         (const T*)gn2b, (const T*)k2, (const T*)c2b, (const T*)mods, (const T*)modb,
-        (const T*)mgs, (const T*)mgb, (T*)h, (T*)out, p, f2, B, L, C, G, rows_per_tile, eps,
-        use_modulation, s);
+        (const T*)mgs, (const T*)mgb, (T*)h, (T*)y, (T*)out, p, f2, B, L, C, G, rows_per_tile,
+        eps, use_modulation, s);
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
     return item_forward<T>(
         (const T*)x, (const T*)gn1s, (const T*)gn1b, (const T*)k1, (const T*)c1b, (const T*)gn2s,
         (const T*)gn2b, (const T*)k2, (const T*)c2b, (const T*)mods, (const T*)modb,
-        (const T*)mgs, (const T*)mgb, (T*)h, (T*)out, p, f2, B, L, C, G, rows_per_tile, eps,
-        use_modulation, s);
+        (const T*)mgs, (const T*)mgb, (T*)h, (T*)y, (T*)out, p, f2, B, L, C, G, rows_per_tile,
+        eps, use_modulation, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -399,9 +208,9 @@ extern "C" int resnet_conv_grid(int dtype, int B, int L, int C, int* ctas, int* 
   *ctas = ((L + BM - 1) / BM) * ((C + BN - 1) / BN) * B;
   if (dtype == 0)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, gn_silu_conv3_kernel<float, true>, THREADS, 0);
+        blocks_per_sm, conv3_kernel<float, kForwardResidual>, THREADS, 0);
   if (dtype == 1)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, gn_silu_conv3_kernel<__nv_bfloat16, true>, THREADS, 0);
+        blocks_per_sm, conv3_kernel<__nv_bfloat16, kForwardResidual>, THREADS, 0);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,28 @@
+"""Sigma distributions for training-time noise levels (counterpart of
+audio_diffusion_tpu/diffusion/distributions.py). A draw takes an explicit
+``torch.Generator`` where the JAX package takes a PRNG key."""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+__all__ = ["Distribution", "UniformDistribution"]
+
+
+class Distribution:
+    """Interface: ``dist(generator, num_samples) -> [num_samples]`` of σ."""
+
+    def __call__(self, generator: torch.Generator, num_samples: int) -> Tensor:
+        raise NotImplementedError()
+
+
+class UniformDistribution(Distribution):
+    """σ ~ U[vmin, vmax), float32, on the generator's device."""
+
+    def __init__(self, vmin: float = 0.0, vmax: float = 1.0):
+        self.vmin, self.vmax = vmin, vmax
+
+    def __call__(self, generator: torch.Generator, num_samples: int) -> Tensor:
+        u = torch.rand((num_samples,), generator=generator,
+                       device=generator.device, dtype=torch.float32)
+        return self.vmin + (self.vmax - self.vmin) * u

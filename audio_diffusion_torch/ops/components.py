@@ -48,9 +48,10 @@ def UNetV0(
 
     ``lane_fold`` and ``use_pallas`` are the JAX package's TPU switches: they
     are accepted and ignored (the port never folds lanes, and every resnet
-    item runs the fused kernel on a CUDA tensor). Not ported yet, and raising
-    ``NotImplementedError``: dim 2/3, cross-attention, context injection,
-    CFG, text conditioning, remat and ``channel_change="first_item"``.
+    item runs the fused kernels, forward and backward, on a CUDA tensor). Not
+    ported yet, and raising ``NotImplementedError``: dim 2/3, cross-attention,
+    context injection, CFG, text conditioning, remat (activation
+    checkpointing) and ``channel_change="first_item"``.
     """
     if dim != 1:
         raise NotImplementedError(
@@ -72,7 +73,7 @@ def UNetV0(
         "cross_attentions": (any(cross_attentions), "conditioning"),
         "context_channels": (any(context_channels), "conditioning"),
         "use_remat": (use_remat or remat_policy is not None,
-                      "training slice"),
+                      "trainer and data"),
         "channel_change": (channel_change != "resample", "parity geometry"),
     }
     for name, (asked, item) in unported.items():

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``. The library's file name carries
-a hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded from ``audio_diffusion_torch/_build/``. The build runs
+a hash of the source, the headers beside it (``csrc/*.cuh``) and the flags,
+so an edited source builds anew and an unchanged one is loaded from
+``audio_diffusion_torch/_build/``. Libraries may be loaded from several
+threads at once, one ``nvcc`` each. The build runs
 at first use, never at import, and a failed build raises.
 """
 from __future__ import annotations
@@ -40,8 +42,10 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib.exists():
         nvcc = _nvcc()

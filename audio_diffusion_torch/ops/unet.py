@@ -7,8 +7,10 @@ matrices, no VMEM guard. This is the math the JAX net computes with
 ``lane_fold=False``.
 
 Every ``ResnetModItem`` runs the fused resnet item
-(``ops/kernels/resnet.py``): the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor. Parameter names follow the JAX parameter tree, so
+(``ops/kernels/resnet.py``): the CUDA kernels, forward and backward, on a
+CUDA tensor, its plain version on a CPU tensor. Parameters are float32
+masters cast to the compute dtype at each use, so gradients arrive in
+float32. Parameter names follow the JAX parameter tree, so
 ``convert.params_from_jax`` is a renaming plus the Dense transposes.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Small helpers (own copies of audio_diffusion_tpu/utils/__init__.py:103-165)
+"""Small helpers (own copies of audio_diffusion_tpu/utils/__init__.py:103-180)
 and the device rule of the port."""
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 T = TypeVar("T")
 
-__all__ = ["exists", "default", "groupby", "resolve_device"]
+__all__ = ["exists", "default", "groupby", "dequant_pcm16", "resolve_device"]
 
 
 def exists(val: Optional[T]) -> bool:
@@ -37,6 +37,15 @@ def groupby(prefix: str, d: Dict, keep_prefix: bool = False) -> Tuple[Dict, Dict
     if keep_prefix:
         return kwargs_with_prefix, kwargs
     return {k[len(prefix):]: v for k, v in kwargs_with_prefix.items()}, kwargs
+
+
+def dequant_pcm16(x):
+    """Dequantize int16 PCM audio to float32 in [-1, 1); anything else passes
+    through unchanged. x / 32768 with power-of-two factors reproduces the
+    float32 decode of the same samples bit for bit."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int16:
+        return x.to(torch.float32) * (1.0 / 32768.0)
+    return x
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:

@@ -30,7 +30,7 @@ setup(
     # Ship the native data-loader source (compiled on demand with g++) and
     # the port's CUDA sources (compiled on demand with nvcc).
     package_data={"audio_diffusion_tpu.data": ["wavio.cpp"],
-                  "audio_diffusion_torch": ["csrc/*.cu"]},
+                  "audio_diffusion_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     include_package_data=True,
     classifiers=[
         "Development Status :: 4 - Beta",

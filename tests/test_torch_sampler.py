@@ -93,6 +93,8 @@ def test_sampler_routing_and_unported_options():
     noise = torch.zeros(1, 2, LENGTH)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.sample(noise, num_steps=4, encoder_reuse=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionModel(net_t=UNetV0, device="cpu",
-                       diffusion_sigma_distribution=None, **CFG)
+    # diffusion_* kwargs reach the diffusion (None: its default U[0, 1)).
+    model = DiffusionModel(net_t=UNetV0, device="cpu",
+                           diffusion_sigma_distribution=None, **CFG)
+    assert (model.diffusion.sigma_distribution.vmin,
+            model.diffusion.sigma_distribution.vmax) == (0.0, 1.0)

@@ -30,12 +30,12 @@ CFG = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
            attention_features=8, modulation_features=64)
 
 
-def jax_net_and_params(seed=0, **overrides):
+def jax_net_and_params(seed=0, length=LENGTH, **overrides):
     """The JAX net and a seeded random parameter tree of its shape (every
     leaf random, so the zero-initialized gates carry signal too)."""
     cfg = {**CFG, **overrides}
     net = JaxUNetV0(dim=1, **cfg)
-    x = jnp.zeros((2, 2, LENGTH))
+    x = jnp.zeros((2, 2, length))
     sigmas = jnp.zeros((2,)) if net.uses_sigma else None
     shapes = jax.eval_shape(lambda: net.module.init(
         {"params": jax.random.key(0)}, x, sigmas))["params"]
@@ -193,3 +193,27 @@ def test_unported_call_kwargs_raise(pair):
             model.net.apply(model.params, x, sig, embedding_scale=3.0)
         with pytest.raises(ValueError, match="divisible"):
             model.net.apply(model.params, torch.zeros(1, 2, 100), sig)
+
+
+@pytest.mark.slow
+def test_forward_parity_full_readme_geometry():
+    """All 9 levels of the README flagship geometry (length scaled down to
+    2^15 for the CPU), the port against the JAX net on the same weights, in
+    float32: MSE ≤ 1e-3 and max-abs < 5e-2, the bar of
+    test_parity_full_model.py for this geometry. Marked slow: the two nets
+    hold the flagship's parameters, and the JAX one is compiled for the CPU."""
+    from audio_diffusion_torch import presets
+
+    net, cfg, tree = jax_net_and_params(
+        seed=5, length=2**15, modulation_features=1024,
+        **presets.UNCONDITIONAL_48K)
+    model = port_model(cfg, tree)
+    x = np.random.RandomState(6).randn(1, 2, 2**15).astype(np.float32)
+    want = np.asarray(jax.jit(net.apply)(tree, jnp.asarray(x),
+                                         jnp.full((1,), 0.5, jnp.float32)))
+    with torch.inference_mode():
+        got = model.net.apply(model.params, torch.from_numpy(x),
+                              torch.full((1,), 0.5)).numpy()
+    err = np.abs(got - want).max()
+    mse = float(np.mean((got - want) ** 2))
+    assert mse <= 1e-3 and err < 5e-2, f"MSE {mse}, max err {err}"
