@@ -1,7 +1,8 @@
 // Shared by resnet_item.cu (forward) and resnet_item_bwd.cu (backward): the
 // element conversions, the cp.async helpers and the k=3 convolution kernel,
-// which runs the forward's two convolutions and, with the weight taps flipped
-// and transposed on the way into shared memory, the backward's data gradient.
+// which runs the f32 forward's two convolutions (the bf16 ones are
+// conv3_sm90.cuh's) and, with the weight taps flipped and transposed on the
+// way into shared memory, the backward's data gradient.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -27,19 +27,18 @@
 // of launches:
 //   gn_partial   per-(L tile, group) sums and sums of squares (stage 1),
 //   gn_finalize  per-(batch, group) mean and rstd, in a fixed order (stage 2),
-//   conv3        (resnet_common.cuh, shared with the backward's data gradient)
-//                one 32-row x 64-channel output tile per CTA. K chunks of
-//                the raw input rows l-1 .. l+32 and of the three weight taps
-//                arrive by cp.async, double-buffered, so the next chunk is in
-//                flight while the current one is multiplied; the input tile is
-//                normalised and activated in shared memory, so the activated
-//                tensor never reaches device memory. bf16 runs on the tensor
-//                cores (WMMA m16n16k16, f32 accumulate), f32 on CUDA-core FMAs,
+//   conv3        bf16: conv3_sm90_kernel (conv3_sm90.cuh), wgmma with A from
+//                registers, a cp.async ring of K chunks, a tile per level and
+//                deterministic split-K (then conv3_splitk_reduce), as
+//                conv_plan() in ops/kernels/resnet.py picks them;
+//                f32: conv3_kernel (resnet_common.cuh, shared with the
+//                backward's data gradient), a 32 x 64 tile on CUDA-core FMAs.
+//                Either normalises and activates its input tile in shared
+//                memory, so the activated tensor never reaches device memory,
 //   modulate     the elementwise modulation epilogue (in place unless the
 //                caller keeps the unmodulated item for the backward).
-// Tiling the output over channels (BN = 64) gives C/64 CTAs per row tile, so
-// the deep levels at batch 1 still launch 64..256 CTAs. All reductions run in
-// a fixed order, so the result is deterministic.
+// All reductions run in a fixed order, so the result is deterministic.
+#include "conv3_sm90.cuh"
 #include "resnet_common.cuh"
 
 namespace {
@@ -136,21 +135,30 @@ int item_forward(const T* x, const T* gn1s, const T* gn1b, const T* k1, const T*
                  const T* gn2s, const T* gn2b, const T* k2, const T* c2b, const T* mods,
                  const T* modb, const T* mgs, const T* mgb, T* h, T* y, T* out, float* partial,
                  float2* stats, int B, int L, int C, int G, int rows_per_tile, float eps,
-                 int use_modulation, cudaStream_t stream) {
+                 int use_modulation, const int* plan, float* ws, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   const dim3 grid((L + BM - 1) / BM, (C + BN - 1) / BN, B);
   float2* stats1 = stats;
   float2* stats2 = stats + (size_t)B * G;
   float2* stats3 = stats + (size_t)2 * B * G;
   int err = gn_stats<T>(x, partial, stats1, B, L, C, G, rows_per_tile, eps, stream);
   if (err) return err;
-  conv3_kernel<T, kForward><<<grid, THREADS, 0, stream>>>(x, stats1, gn1s, gn1b, k1, c1b,
-                                                          nullptr, h, L, C, G);
-  if ((err = (int)cudaGetLastError())) return err;
+  if constexpr (kBf16)
+    err = (int)conv3_sm90<kForward>(plan[0], plan[1], plan[2], x, stats1, gn1s, gn1b, k1, c1b,
+                                    nullptr, h, ws, B, L, C, G, plan[3], plan[4], stream);
+  else
+    conv3_kernel<T, kForward><<<grid, THREADS, 0, stream>>>(x, stats1, gn1s, gn1b, k1, c1b,
+                                                            nullptr, h, L, C, G);
+  if (err || (err = (int)cudaGetLastError())) return err;
   if ((err = gn_stats<T>(h, partial, stats2, B, L, C, G, rows_per_tile, eps, stream)))
     return err;
-  conv3_kernel<T, kForwardResidual><<<grid, THREADS, 0, stream>>>(h, stats2, gn2s, gn2b, k2,
-                                                                  c2b, x, y, L, C, G);
-  if ((err = (int)cudaGetLastError())) return err;
+  if constexpr (kBf16)
+    err = (int)conv3_sm90<kForwardResidual>(plan[0], plan[1], plan[2], h, stats2, gn2s, gn2b, k2,
+                                            c2b, x, y, ws, B, L, C, G, plan[3], plan[4], stream);
+  else
+    conv3_kernel<T, kForwardResidual><<<grid, THREADS, 0, stream>>>(h, stats2, gn2s, gn2b, k2,
+                                                                    c2b, x, y, L, C, G);
+  if (err || (err = (int)cudaGetLastError())) return err;
   if (!use_modulation) return 0;
   if ((err = gn_stats<T>(y, partial, stats3, B, L, C, G, rows_per_tile, eps, stream)))
     return err;
@@ -170,16 +178,23 @@ int item_forward(const T* x, const T* gn1s, const T* gn1b, const T* k1, const T*
 // [B, ceil(L / rows_per_tile), G, 2]; stats: f32 [3, B, G, 2]. y receives the
 // item before its modulation and out the item; without modulation only y is
 // written; with it, y and out may be one buffer (the caller that keeps
-// nothing for a backward passes the same pointer). Returns the first CUDA
-// error code seen after a launch, 0 on success. Launches on `stream`.
+// nothing for a backward passes the same pointer). bfloat16 only: conv_bn,
+// conv_mt, conv_bk, conv_splits and conv_cps are the conv's tile and split
+// (conv_plan() in ops/kernels/resnet.py), ws its f32 workspace of
+// conv_splits * B * L * C values when conv_splits > 1. Returns the first
+// CUDA error code seen after a launch, 0 on success. Launches on `stream`.
 extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, const void* gn1b,
                                    const void* k1, const void* c1b, const void* gn2s,
                                    const void* gn2b, const void* k2, const void* c2b,
                                    const void* mods, const void* modb, const void* mgs,
                                    const void* mgb, void* h, void* y, void* out, void* partial,
                                    void* stats, int B, int L, int C, int G, int rows_per_tile,
-                                   float eps, int use_modulation, void* stream) {
+                                   float eps, int use_modulation, int conv_bn, int conv_mt,
+                                   int conv_bk, int conv_splits, int conv_cps, void* ws,
+                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const int plan[5] = {conv_bn, conv_mt, conv_bk, conv_splits, conv_cps};
+  auto w = static_cast<float*>(ws);
   auto f2 = static_cast<float2*>(stats);
   auto p = static_cast<float*>(partial);
   if (dtype == 0) {
@@ -188,7 +203,7 @@ extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, c
         (const T*)x, (const T*)gn1s, (const T*)gn1b, (const T*)k1, (const T*)c1b, (const T*)gn2s,
         (const T*)gn2b, (const T*)k2, (const T*)c2b, (const T*)mods, (const T*)modb,
         (const T*)mgs, (const T*)mgb, (T*)h, (T*)y, (T*)out, p, f2, B, L, C, G, rows_per_tile,
-        eps, use_modulation, s);
+        eps, use_modulation, plan, w, s);
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
@@ -196,21 +211,18 @@ extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, c
         (const T*)x, (const T*)gn1s, (const T*)gn1b, (const T*)k1, (const T*)c1b, (const T*)gn2s,
         (const T*)gn2b, (const T*)k2, (const T*)c2b, (const T*)mods, (const T*)modb,
         (const T*)mgs, (const T*)mgb, (T*)h, (T*)y, (T*)out, p, f2, B, L, C, G, rows_per_tile,
-        eps, use_modulation, s);
+        eps, use_modulation, plan, w, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The conv kernel's grid at one item shape: CTAs launched and CTAs that fit
-// on one SM at once (dtype as above), for the record of how full the card
-// is at each level. Returns the CUDA error code.
-extern "C" int resnet_conv_grid(int dtype, int B, int L, int C, int* ctas, int* blocks_per_sm) {
-  *ctas = ((L + BM - 1) / BM) * ((C + BN - 1) / BN) * B;
-  if (dtype == 0)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, conv3_kernel<float, kForwardResidual>, THREADS, 0);
-  if (dtype == 1)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, conv3_kernel<__nv_bfloat16, kForwardResidual>, THREADS, 0);
-  return (int)cudaErrorInvalidValue;
+// The bf16 conv's plan (tile bn x 64*mt rows, K chunks of bk, cps chunks per
+// split) against the card: its dynamic shared memory and the CTAs that fit
+// on one SM at once, for the record of how full the card is at each level.
+// Returns the CUDA error code.
+extern "C" int resnet_conv_plan_occupancy(int bn, int mt, int bk, int cps, int* smem,
+                                          int* blocks_per_sm) {
+  return (int)conv3_sm90<kForward>(bn, mt, bk, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1, 1, cps, nullptr,
+                                   smem, blocks_per_sm);
 }

@@ -4,8 +4,10 @@ plain PyTorch version.
 Counterpart of ``audio_diffusion_tpu/ops/kernels/resnet.py`` (the Pallas
 ``fused_resnet_item``) at fold 1, channels-last ``[B, L, C]``: no lane
 folding, so no lane→group matrices. The kernel source is
-``audio_diffusion_torch/csrc/resnet_item.cu``; its header says what bounds it
-on an H100 and how the design answers that.
+``audio_diffusion_torch/csrc/resnet_item.cu``, whose bf16 convolutions are
+``csrc/conv3_sm90.cuh``; their headers say what bounds them on an H100 and
+how the design answers that. :func:`conv_plan` picks that conv's tile and
+split-K per item shape.
 
 A CPU tensor takes :func:`resnet_item_reference`, whose gradient is
 autograd's; a CUDA tensor takes the kernels or raises. Where autograd needs a
@@ -26,7 +28,8 @@ from torch import Tensor
 
 from .build import load_library
 
-__all__ = ["fused_resnet_item", "resnet_item_reference", "conv_occupancy"]
+__all__ = ["fused_resnet_item", "resnet_item_reference", "conv_plan",
+           "conv_occupancy"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements each CTA of the statistics pass sums (sets its L tile).
@@ -38,6 +41,14 @@ _WGRAD_CHUNK = 32
 _WGRAD_TILE = 64
 _WGRAD_CTAS = 512
 _WGRAD_PARTIAL_BYTES = 16 * 2**20
+# The bf16 forward conv (csrc/conv3_sm90.cuh): output channels per CTA for
+# C up to each key, the most and the fewest 64-row sub-tiles per CTA, and
+# the K chunk of that tile; an H100's SMs; the cap on split-K's f32
+# partials.
+_CONV_TILES = ((8, 8, 2, 16), (32, 4, 1, 32), (64, 2, 1, 32),
+               (128, 2, 2, 32))
+_SMS = 132
+_CONV_WORKSPACE_BYTES = 16 * 2**20
 
 
 def _group_stats(h: Tensor, groups: int, eps: float):
@@ -101,7 +112,8 @@ def _kernel():
     fn = load_library("resnet_item").resnet_item_forward
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
                    + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -116,22 +128,77 @@ def _backward_kernel():
     return fn
 
 
-def conv_occupancy(dtype: torch.dtype, channels: int, length: int,
-                   batch: int = 1) -> dict:
-    """The conv kernel's grid at one item shape against what the card holds
-    at once: CTAs launched, resident CTAs per SM, and the share of one full
-    wave they fill (needs a CUDA device)."""
-    fn = load_library("resnet_item").resnet_conv_grid
+def conv_occupancy(channels: int, length: int, batch: int = 1) -> dict:
+    """:func:`conv_plan` of the bf16 forward conv at one item shape against
+    what the card holds at once: the plan, its dynamic shared memory,
+    resident CTAs per SM, and the share of one full wave they fill (needs a
+    CUDA device)."""
+    sms = _sm_count(torch.cuda.current_device())
+    plan = conv_plan(batch, length, channels, sms)
+    fn = load_library("resnet_item").resnet_conv_plan_occupancy
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
-    ctas, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(_DTYPE_CODES[dtype], batch, length, channels, ctypes.byref(ctas),
-             ctypes.byref(blocks))
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(plan["bn"], plan["mt"], plan["bk"], plan["cps"],
+             ctypes.byref(smem), ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"conv_occupancy: CUDA error {err}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(ctas=ctas.value, blocks_per_sm=blocks.value, sms=sms,
-                wave_fill=min(1.0, ctas.value / (sms * blocks.value)))
+    return dict(plan, smem_bytes=smem.value, blocks_per_sm=blocks.value,
+                sms=sms, wave_fill=min(1.0, plan["ctas"]
+                                       / (sms * blocks.value)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(batch: int, length: int, channels: int, sms: int = _SMS) -> dict:
+    """Tile and split-K of the bf16 forward conv at one item shape.
+
+    ``bn`` output channels (a multiple of 8 up to 128, the narrowest of
+    8, 32, 64, 128 that covers C) by ``64 * mt`` rows per CTA, K chunks of
+    ``bk`` input channels (16 at C = 8, half of it zero, else 32). Where
+    its row tiles would not give every SM a CTA, ``mt`` drops to its tile's
+    fewest (2 at C = 8, 1 at C = 32 and 64); the 128-channel tile is always
+    128 rows tall, so that fewer row tiles read each weight (on an H100
+    that took 2–9% off an item at levels 3–8 against 64 rows; PERF.md).
+    If the grid still fills less than a wave of ``sms`` CTAs, K's
+    ``chunks`` are split: each of ``splits`` CTAs per output tile takes
+    ``cps`` consecutive chunks (all three taps of each; the last split may
+    take fewer). The split count is the one whose
+    grid comes closest to one wave of ``resident`` CTAs on each SM (the
+    fewer splits on a tie), as long as their f32 partials
+    (``workspace_bytes``) stay within ``_CONV_WORKSPACE_BYTES``: on an H100
+    at batch 1 that was the fastest split, or within 2% of it, at every
+    level from 3 to 8 (``conv_plan_sweep.py``; PERF.md)."""
+    bn, mt, mt_min, bk = next((t for t in _CONV_TILES if channels <= t[0]),
+                              _CONV_TILES[-1])
+    ch_tiles = -(-channels // bn)
+    if batch * -(-length // (64 * mt)) * ch_tiles < sms:
+        mt = mt_min
+    tiles = batch * -(-length // (64 * mt)) * ch_tiles
+    chunks = -(-channels // bk)
+    partial = 4 * batch * length * channels
+    # CTAs an SM holds at once: the kernel's launch bounds give the
+    # 128 x 128 tile the registers of one CTA per SM, the others two.
+    resident = 1 if bn * mt > 128 else 2
+    splits, cps = 1, chunks
+    if tiles < sms:
+        best = None
+        for want in range(1, chunks + 1):
+            c = -(-chunks // want)
+            s = -(-chunks // c)
+            if s > 1 and s * partial > _CONV_WORKSPACE_BYTES:
+                break
+            gap = abs(tiles * s - resident * sms)
+            if best is None or gap < best[0]:
+                best = (gap, s, c)
+        _, splits, cps = best
+    return dict(bn=bn, mt=mt, bk=bk, chunks=chunks, splits=splits, cps=cps,
+                ctas=tiles * splits, resident=resident,
+                workspace_bytes=partial * splits if splits > 1 else 0)
 
 
 def wgrad_slabs(batch: int, length: int, channels: int):
@@ -169,13 +236,20 @@ def _launch_forward(x, params, groups, eps, use_modulation, keep):
                           device=x.device)
     stats = torch.empty((3, b, groups, 2), dtype=torch.float32,
                         device=x.device)
+    plan, ws = (0, 0, 0, 1, 1), None
+    if x.dtype == torch.bfloat16:
+        p = conv_plan(b, length, c, _sm_count(x.device.index))
+        plan = (p["bn"], p["mt"], p["bk"], p["splits"], p["cps"])
+        if p["workspace_bytes"]:
+            ws = torch.empty(p["workspace_bytes"] // 4, dtype=torch.float32,
+                             device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(
             _DTYPE_CODES[x.dtype], _ptr(x), *(_ptr(t) for t in params),
             _ptr(h), _ptr(y), _ptr(out), _ptr(partial), _ptr(stats),
             b, length, c, groups, rows_per_tile, eps, int(use_modulation),
-            stream)
+            *plan, _ptr(ws), stream)
     if err:
         raise RuntimeError(f"fused_resnet_item: CUDA error {err} at launch")
     fused_resnet_item.launches += 1

@@ -26,7 +26,9 @@ max-abs ≤ 2e-4·max(1, max|y|), sums taken in another order; bfloat16
 max-abs ≤ 2^-5·max|y| (four ulps of the largest output: the kernel and the
 plain version round at the same points, but a sum that lands on the other
 side of a rounding boundary moves conv 1's output by one ulp, and the
-modulation's GroupNorm can scale that by up to about two). The full-width
+modulation's GroupNorm can scale that by up to about two); a second bf16
+call on the same inputs must give the same bits (split-K sums its partials
+in a fixed order). The full-width
 forward, kernel path vs plain path in bf16, must agree to a relative L2
 error ≤ 5e-2 (about a hundred chained bf16 roundings).
 
@@ -58,6 +60,7 @@ from pathlib import Path
 from unittest import mock
 
 KERNEL_SOURCE = "audio_diffusion_torch/csrc/resnet_item.cu"
+CONV_SOURCE = "audio_diffusion_torch/csrc/conv3_sm90.cuh"
 REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:172"
 BACKWARD_SOURCE = "audio_diffusion_torch/csrc/resnet_item_bwd.cu"
 BACKWARD_REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:193-219"
@@ -208,7 +211,10 @@ def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb,
 
 
 def phase_kernel_vs_plain(flush):
-    """Kernel vs plain version at each level's item shape, bf16 and f32."""
+    """Kernel vs plain version at each level's item shape, bf16 and f32. A
+    bf16 row also reports the conv's plan (tile, rows per CTA, splits, CTAs,
+    resident CTAs per SM, wave fill) and checks that a second call gives the
+    same bits."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         conv_occupancy, fused_resnet_item, resnet_item_reference)
@@ -231,6 +237,15 @@ def phase_kernel_vs_plain(flush):
                     raise AssertionError(
                         f"level {level} {dname}: kernel vs plain max-abs "
                         f"{err} > {bound}")
+                extra = {}
+                if dtype == torch.bfloat16:
+                    again = fused_resnet_item(*args, groups=GROUPS)
+                    if not torch.equal(out, again):
+                        raise AssertionError(
+                            f"level {level} bf16: two calls on the same "
+                            "inputs differ")
+                    extra = dict(conv_plan=conv_occupancy(c, length),
+                                 bit_identical_rerun=True)
                 lib_args = list(args)
                 lib_args[0] = args[0].transpose(1, 2).contiguous()
                 lib_args[3] = args[3].permute(2, 1, 0).contiguous()
@@ -249,8 +264,7 @@ def phase_kernel_vs_plain(flush):
             flops_ms = flops / PEAK_FLOPS[dname] * 1e3
             row = dict(phase="kernel_vs_plain", kernel="fused_resnet_item",
                        level=level, channels=c, length=length, batch=1,
-                       conv_grid=conv_occupancy(dtype, c, length),
-                       dtype=dname, max_abs_err=err, tolerance=bound,
+                       **extra, dtype=dname, max_abs_err=err, tolerance=bound,
                        max_abs_out=ymax, kernel_ms=kernel_ms,
                        kernel_host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(bytes_ms, flops_ms),
@@ -598,7 +612,8 @@ def main() -> int:
         for future in [pool.submit(resnet._kernel),
                        pool.submit(resnet._backward_kernel)]:
             future.result()
-    emit(dict(phase="build", sources=[KERNEL_SOURCE, BACKWARD_SOURCE],
+    emit(dict(phase="build", sources=[KERNEL_SOURCE, CONV_SOURCE,
+                                      BACKWARD_SOURCE],
               seconds=time.perf_counter() - t0))
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
@@ -672,7 +687,8 @@ def main() -> int:
     print(smi)
     emit({"kernels": [
         summary("fused_resnet_item", KERNEL_SOURCE, REPLACES, rows,
-                launches=launches, train_launches=train_launches[0]),
+                launches=launches, train_launches=train_launches[0],
+                conv_source=CONV_SOURCE),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS)]})

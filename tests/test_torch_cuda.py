@@ -26,7 +26,7 @@ import torch
 from audio_diffusion_torch import DiffusionModel, UNetV0, make_train_step
 from audio_diffusion_torch.diffusion.vdiffusion import v_loss
 from audio_diffusion_torch.ops.kernels.resnet import (
-    fused_resnet_item, resnet_item_reference)
+    conv_plan, fused_resnet_item, resnet_item_reference)
 
 torch.set_num_threads(2)
 
@@ -75,6 +75,31 @@ def test_kernel_matches_plain(cuda_device, dtype, channels, length,
     bound = 2e-4 if dtype == torch.float32 else \
         2.0 ** -6 * ref.float().abs().max().item()
     assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,length,batch,split_k,bn", [
+    (1024, 128, 1, True, 128), (512, 1024, 1, True, 128),
+    (8, 2**14 + 3, 1, False, 8)])
+def test_bf16_conv_plans_match_plain(cuda_device, channels, length, batch,
+                                     split_k, bn):
+    """The bf16 item through the split-K path of its conv (levels 8 and 5 at
+    batch 1) and through the N = 8 tile with a ragged last row tile, against
+    the plain version at two ulps; a second call gives the same bits."""
+    plan = conv_plan(batch, length, channels,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (plan["splits"] > 1) == split_k and plan["bn"] == bn
+    args = item_inputs(channels, length, batch, channels, torch.bfloat16,
+                       cuda_device)
+    before = fused_resnet_item.launches
+    out = fused_resnet_item(*args, groups=GROUPS)
+    again = fused_resnet_item(*args, groups=GROUPS)
+    torch.cuda.synchronize()
+    assert fused_resnet_item.launches == before + 2
+    assert torch.equal(out, again)
+    ref = resnet_item_reference(*args, groups=GROUPS)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * ref.float().abs().max().item(), err
 
 
 NAMES = ("x", "gn1s", "gn1b", "k1", "c1b", "gn2s", "gn2b", "k2", "c2b",

@@ -19,7 +19,7 @@ from audio_diffusion_tpu.ops.kernels.resnet import (
     fused_resnet_item as jax_fused_resnet_item, group_map,
     resnet_item_reference as jax_resnet_item_reference)
 from audio_diffusion_torch.ops.kernels.resnet import (
-    fused_resnet_item, resnet_item_reference)
+    conv_plan, fused_resnet_item, resnet_item_reference)
 
 torch.set_num_threads(2)
 
@@ -109,3 +109,45 @@ def test_wrapper_takes_plain_path_on_cpu():
     out = fused_resnet_item(*args[:9], groups=GROUPS, use_modulation=False)
     assert torch.equal(out, resnet_item_reference(
         *args[:9], groups=GROUPS, use_modulation=False))
+
+
+LEVELS = [(8, 2**18), (32, 2**16), (64, 2**14), (128, 2**12), (256, 2**11),
+          (512, 2**10), (512, 2**9), (1024, 2**8), (1024, 2**7)]
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("channels,length", LEVELS)
+def test_conv_plan_at_flagship_levels(channels, length, batch):
+    """The bf16 forward conv's tile and split-K (conv_plan) at the flagship's
+    nine level shapes: the splits cover K = 3·C exactly, without overlap;
+    the tile is a wgmma width that covers C; the workspace stays within its
+    cap; the grid fills a wave of 132 SMs (at most 4 of them idle) wherever
+    one row of 64 per CTA and one K chunk per split could, and a split grid
+    stays within two waves."""
+    p = conv_plan(batch, length, channels)
+    assert p["bn"] % 8 == 0 and 8 <= p["bn"] <= 256
+    assert channels % p["bn"] == 0 or p["bn"] >= channels
+    assert p["bk"] % 16 == 0 and p["chunks"] * p["bk"] >= channels
+    assert (p["chunks"] - 1) * p["bk"] < channels
+    # Split s takes chunks [s·cps, min((s+1)·cps, chunks)), all three taps.
+    covered = [k for s in range(p["splits"])
+               for k in range(s * p["cps"], min((s + 1) * p["cps"],
+                                                 p["chunks"]))]
+    assert covered == list(range(p["chunks"]))  # each once, none empty
+    assert (p["splits"] - 1) * p["cps"] < p["chunks"]
+    taps = sorted((t, c) for k in covered for t in range(3)
+                  for c in range(k * p["bk"], min((k + 1) * p["bk"],
+                                                  channels)))
+    assert taps == [(t, c) for t in range(3) for c in range(channels)]
+    tiles = batch * -(-length // (64 * p["mt"])) * -(-channels // p["bn"])
+    assert p["ctas"] == tiles * p["splits"]
+    assert p["workspace_bytes"] <= 16 * 2**20
+    assert p["workspace_bytes"] == (
+        4 * batch * length * channels * p["splits"] if p["splits"] > 1 else 0)
+    # A wave is one CTA per SM, two where a tile leaves room for two; with
+    # whole splits the grid may stop one tile-row's worth short of it.
+    wave = 132 * p["resident"]
+    most = batch * -(-length // 64) * -(-channels // p["bn"]) * p["chunks"]
+    if most >= wave:
+        assert p["ctas"] >= 0.95 * wave
+    assert p["ctas"] <= 2 * wave or p["splits"] == 1
