@@ -1,13 +1,18 @@
-// The bf16 forward convolution of the fused resnet item for Hopper (sm_90a):
-// conv3_kernel<bf16, kForward> and <bf16, kForwardResidual> of
-// resnet_common.cuh, redesigned around wgmma. Replaces, with the rest of the
+// The bf16 convolution of the fused resnet item for Hopper (sm_90a), around
+// wgmma: the forward's two convolutions (kForward, kForwardResidual) and the
+// backward's two data gradients (kDataGrad). Replaces, with the rest of the
 // chain in resnet_item.cu, the TPU kernel `fused_resnet_item` (pl.pallas_call
 // at audio_diffusion_tpu/ops/kernels/resnet.py:172, body `_item_kernel`),
-// whose two GN->SiLU->conv3 stages these are.
+// whose two GN->SiLU->conv3 stages these are, and with resnet_item_bwd.cu
+// its custom VJP (`_fwd`/`_bwd`, resnet.py:193-219).
 //
 //   out[b, l, co] = sum_t sum_ci act(x[b, l - 1 + t, ci]) * w[t, ci, co] + bias[co]
 //                   (+ res[b, l, co] for kForwardResidual),
 //   act(v) = bf16(SiLU((v - mean) * rstd * gamma + beta)), zero outside [0, L).
+//
+// The data gradient has the same shapes (M = L rows, N = C, K = 3 C) and the
+// same loop; conv3_sm90_kernel's note below says where it differs. Its
+// bounds are the forward's, with f32 out: its output rows weigh twice as much.
 //
 // What bounds each level on an H100 (batch 1, one conv: 6*C^2*L operations
 // at 989 TFLOP/s against 2*L*C + 3*C^2 bf16 values at 3.35 TB/s): levels
@@ -113,94 +118,106 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 }
 
 // D[64 x N] += A[64 x 16] * B[16 x N]: A from registers (the mma.m16n8k16 A
-// fragment of each warp's 16 rows), B MN-major through `desc`.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
-template <> __device__ __forceinline__ void wgmma_rs<8>(float (&d)[4], const uint32_t (&a)[4],
-                                                      uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <> __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
-                                                      uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <> __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                      uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <> __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                                      uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                                      uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+// fragment of each warp's 16 rows), B through `desc`: MN-major with TB = 1
+// (wgmma's transpose flag for B), K-major with TB = 0.
+template <int N, int TB = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+  static_assert(TB == 0 || TB == 1, "transpose flag");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  } else {
+    static_assert(N == 128, "wgmma width");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  }
 }
 
 // SiLU with the fast exponential and division: its result is rounded to bf16
 // at once, far coarser than their few-ulp f32 error.
 __device__ __forceinline__ float silu_fast(float n) { return __fdividef(n, 1.f + __expf(-n)); }
 
+// The data gradient (MODE == kDataGrad; x is dv, the gradient of the conv's
+// output, res the stage input u, out f32):
+//
+//   dn[b, l, ci] = (sum_t' sum_co dv[b, l - 1 + t', co] * w[2 - t', ci, co])
+//                  * SiLU'((u[b, l, ci] - mean) * rstd * gamma + beta),
+//
+// the forward's loop over tap t' = 2 - t with the roles of ci and co
+// swapped: K runs over co and N over ci. Its input tile is dv itself, so
+// there is no prologue. Its B[k = co, n = ci] = w[2 - t', ci, co] has K
+// contiguous in memory: each 16-byte vector w[t, ci, co0 .. co0 + 8] is one
+// row of a K-major core matrix (8 N-rows of 8 K-values), staged by cp.async
+// into the same arrangement of core matrices as the forward's B and read
+// with the transpose flag off. The epilogue multiplies by SiLU' with the
+// precise exponential (dn stays f32, so nothing would hide a coarser one).
+//
 // grid (row tiles * B, ceil(C / BN), splits), SM90_THREADS threads (two
 // warpgroups; two CTAs to an SM, one for the 128 x 128 tile, whose
 // accumulators take 64 registers a thread), min(SM90_STAGES, cps) * sm90_stage_bytes(BN, MT, BK) bytes of
 // dynamic shared memory. The warpgroups split the CTA's tile: by rows where
 // MT >= 2 (MT / 2 sub-tiles of 64 rows each), else by channels (BN / 2 each).
 // Split s takes K chunks [s * cps, (s + 1) * cps) of BK input channels (all
-// three taps of each); with one split it writes out, else its f32 partial to
-// ws[s, b, l, co]. Needs C % 8 == 0 and 16-byte aligned x, w.
+// three taps of each); with one split it writes out (bf16, f32 for the data
+// gradient), else its f32 partial to ws[s, b, l, co], the raw sums. Needs
+// C % 8 == 0 and 16-byte aligned x, w.
 template <int BN, int MT, int BK, int MODE>
 __global__ void __launch_bounds__(SM90_THREADS, BN * MT > 128 ? 1 : 2)
 conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict__ stats,
                   const __nv_bfloat16* __restrict__ gamma, const __nv_bfloat16* __restrict__ beta,
                   const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ bias,
-                  const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out,
+                  const __nv_bfloat16* __restrict__ res, void* __restrict__ out,
                   float* __restrict__ ws, int L, int C, int G, int row_tiles, int cps) {
+  constexpr bool DGRAD = MODE == kDataGrad;
   constexpr bool SPLIT_M = MT >= 2;
   constexpr int MW = SPLIT_M ? MT / 2 : MT;  // 64-row sub-tiles per warpgroup
   constexpr int NW = SPLIT_M ? BN : BN / 2;  // channels per warpgroup
@@ -233,9 +250,12 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
 
   // Stage K chunk i: raw input rows l0-1 .. l0+BM (zero outside [0, L) and
   // past C) and the three taps' [BK, BN] blocks (zero past C). Weight core
-  // matrix (t, kb, nb) holds w[t, k0 + 8kb .. +8, n0 + 8nb .. +8] at
-  // ((t * BK/8 + kb) * BN/8 + nb) * 64 elements; eight neighbouring threads
-  // fill one core matrix, one 16-byte row each.
+  // matrix (t, kb, nb) sits at ((t * BK/8 + kb) * BN/8 + nb) * 64 elements.
+  // Forward: it holds w[t, k0 + 8kb .. +8, n0 + 8nb .. +8], one row per input
+  // channel, and eight neighbouring threads fill it, one 16-byte row each.
+  // Data gradient: it holds w[2 - t, n0 + 8nb .. +8, k0 + 8kb .. +8], one row
+  // per output channel ci, and neighbouring threads take neighbouring
+  // 16-byte vectors of one row of w.
   auto stage = [&](int i) {
     bf16* As = a_tile(i);
     bf16* Bs = b_tile(i);
@@ -248,11 +268,19 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
     }
 #pragma unroll 4
     for (int v = tid; v < 3 * BK * BN / 8; v += SM90_THREADS) {
-      const int r8 = v % 8, nb = (v / 8) % (BN / 8), tkb = v / BN;
-      const int t = tkb / (BK / 8), c = k0 + (tkb % (BK / 8)) * 8 + r8, co = n0 + nb * 8;
-      const bool ok = c < C && co < C;
-      cp_async16(Bs + (tkb * (BN / 8) + nb) * 64 + r8 * 8, ok ? w + ((size_t)t * C + c) * C + co : w,
-                 ok);
+      if constexpr (DGRAD) {
+        const int kb = v % (BK / 8), r8 = (v / (BK / 8)) % 8, nb = (v / BK) % (BN / 8);
+        const int t = v / (BK * BN / 8), co = k0 + kb * 8, ci = n0 + nb * 8 + r8;
+        const bool ok = co < C && ci < C;
+        cp_async16(Bs + ((t * (BK / 8) + kb) * (BN / 8) + nb) * 64 + r8 * 8,
+                   ok ? w + ((size_t)(2 - t) * C + ci) * C + co : w, ok);
+      } else {
+        const int r8 = v % 8, nb = (v / 8) % (BN / 8), tkb = v / BN;
+        const int t = tkb / (BK / 8), c = k0 + (tkb % (BK / 8)) * 8 + r8, co = n0 + nb * 8;
+        const bool ok = c < C && co < C;
+        cp_async16(Bs + (tkb * (BN / 8) + nb) * 64 + r8 * 8,
+                   ok ? w + ((size_t)t * C + c) * C + co : w, ok);
+      }
     }
   };
 
@@ -277,7 +305,7 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
   auto load_gn = [&](int i) {
     Gn q{};
     const int c = (chunk0 + i) * BK + 4 * q4;
-    q.ok = i < nchunks && c < C;  // C % 8 == 0, so c + 3 < C too
+    q.ok = !DGRAD && i < nchunks && c < C;  // C % 8 == 0, so c + 3 < C too
     if (q.ok) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -305,9 +333,10 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
 
     // Normalise and activate the input tile in place; rows outside [0, L)
     // and channels past C stay zero. All of a thread's rows are read before
-    // any is written back, so their latencies overlap.
+    // any is written back, so their latencies overlap. The data gradient
+    // multiplies its input tile as it arrived.
     bf16* As = a_tile(i);
-    if (gn.ok) {
+    if (!DGRAD && gn.ok) {
       uint2 raw[PASSES];
       bool in[PASSES];
 #pragma unroll
@@ -354,8 +383,8 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
       for (int t = 0; t < 3; ++t)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
-          wgmma_rs<NW>(acc[m], a[t][ks],
-                       sm90_desc(Bs + (t * (BK / 8) + 2 * ks) * (BN / 8) * 64, BN * 16, 128));
+          wgmma_rs<NW, DGRAD ? 0 : 1>(
+              acc[m], a[t][ks], sm90_desc(Bs + (t * (BK / 8) + 2 * ks) * (BN / 8) * 64, BN * 16, 128));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -388,6 +417,12 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
           const size_t idx = ((size_t)b * L + l) * C + co;
           if (splits > 1) {
             *reinterpret_cast<float2*>(ws + split * total + idx) = make_float2(v0, v1);
+          } else if constexpr (DGRAD) {
+            const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + idx));
+            const float2 s0 = st[co / cpg], s1 = st[(co + 1) / cpg];
+            v0 *= silu_grad(gn_affine(u.x, s0.x, s0.y, to_f32(gamma[co]), to_f32(beta[co])));
+            v1 *= silu_grad(gn_affine(u.y, s1.x, s1.y, to_f32(gamma[co + 1]), to_f32(beta[co + 1])));
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(v0, v1);
           } else {
             v0 += to_f32(bias[co]);
             v1 += to_f32(bias[co + 1]);
@@ -396,20 +431,24 @@ conv3_sm90_kernel(const __nv_bfloat16* __restrict__ x, const float2* __restrict_
               v0 = r.x + v0;
               v1 = r.y + v1;
             }
-            *reinterpret_cast<__nv_bfloat162*>(out + idx) = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + idx) =
+                __floats2bfloat162_rn(v0, v1);
           }
         }
       }
 }
 
-// out = bf16(sum_s ws[s] + bias (+ res)), the splits summed in order s = 0, 1, ..
+// out = bf16(sum_s ws[s] + bias (+ res)), the splits summed in order s = 0, 1, ..;
+// the data gradient: out = f32(sum_s ws[s] * SiLU'(n)) with n the stage
+// input res normalised as in conv3_sm90_kernel's epilogue.
 // total = B * L * C, a multiple of 4.
 template <int MODE>
-__global__ void conv3_splitk_reduce(const float* __restrict__ ws,
+__global__ void conv3_splitk_reduce(const float* __restrict__ ws, const float2* __restrict__ stats,
+                                    const __nv_bfloat16* __restrict__ gamma,
+                                    const __nv_bfloat16* __restrict__ beta,
                                     const __nv_bfloat16* __restrict__ bias,
-                                    const __nv_bfloat16* __restrict__ res,
-                                    __nv_bfloat16* __restrict__ out, int C, int splits,
-                                    size_t total) {
+                                    const __nv_bfloat16* __restrict__ res, void* __restrict__ out,
+                                    int L, int C, int G, int splits, size_t total) {
   const float4* w4 = reinterpret_cast<const float4*>(ws);
   for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < total / 4;
        q += (size_t)gridDim.x * blockDim.x) {
@@ -422,15 +461,28 @@ __global__ void conv3_splitk_reduce(const float* __restrict__ ws,
       v.w += u.w;
     }
     const int c = (int)(q * 4 % C);
-    float o[4] = {v.x + to_f32(bias[c]), v.y + to_f32(bias[c + 1]), v.z + to_f32(bias[c + 2]),
-                  v.w + to_f32(bias[c + 3])};
-    if constexpr (MODE == kForwardResidual) {
+    if constexpr (MODE == kDataGrad) {
+      const float2* st = stats + q * 4 / ((size_t)L * C) * G;
+      const int cpg = C / G;
+      float o[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = to_f32(res[q * 4 + e]) + o[e];
+      for (int e = 0; e < 4; ++e) {
+        const float2 ms = st[(c + e) / cpg];
+        o[e] *= silu_grad(
+            gn_affine(to_f32(res[q * 4 + e]), ms.x, ms.y, to_f32(gamma[c + e]), to_f32(beta[c + e])));
+      }
+      reinterpret_cast<float4*>(out)[q] = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+      float o[4] = {v.x + to_f32(bias[c]), v.y + to_f32(bias[c + 1]), v.z + to_f32(bias[c + 2]),
+                    v.w + to_f32(bias[c + 3])};
+      if constexpr (MODE == kForwardResidual) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = to_f32(res[q * 4 + e]) + o[e];
+      }
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + q * 4);
+      o2[0] = __floats2bfloat162_rn(o[0], o[1]);
+      o2[1] = __floats2bfloat162_rn(o[2], o[3]);
     }
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + q * 4);
-    o2[0] = __floats2bfloat162_rn(o[0], o[1]);
-    o2[1] = __floats2bfloat162_rn(o[2], o[3]);
   }
 }
 
@@ -438,7 +490,7 @@ template <int BN, int MT, int BK, int MODE>
 cudaError_t conv3_sm90_tile(const __nv_bfloat16* x, const float2* stats, const __nv_bfloat16* gamma,
                             const __nv_bfloat16* beta, const __nv_bfloat16* w,
                             const __nv_bfloat16* bias, const __nv_bfloat16* res,
-                            __nv_bfloat16* out, float* ws, int B, int L, int C, int G, int splits,
+                            void* out, float* ws, int B, int L, int C, int G, int splits,
                             int cps, int* smem_out, int* blocks_per_sm, cudaStream_t stream) {
   auto kernel = conv3_sm90_kernel<BN, MT, BK, MODE>;
   constexpr int MOST = SM90_STAGES * sm90_stage_bytes(BN, MT, BK);
@@ -465,19 +517,20 @@ cudaError_t conv3_sm90_tile(const __nv_bfloat16* x, const float2* stats, const _
   const size_t total = (size_t)B * L * C;
   const size_t want = (total / 4 + 255) / 256;
   const int blocks = want < 132 * 8 ? (int)want : 132 * 8;
-  conv3_splitk_reduce<MODE><<<blocks, 256, 0, stream>>>(ws, bias, res, out, C, splits, total);
+  conv3_splitk_reduce<MODE><<<blocks, 256, 0, stream>>>(ws, stats, gamma, beta, bias, res, out, L,
+                                                         C, G, splits, total);
   return cudaGetLastError();
 }
 
-// The bf16 forward conv with the tile (bn, mt, bk) and split (splits, cps)
-// of conv_plan(). With blocks_per_sm set it launches nothing and reports the
-// plan's dynamic shared memory and resident CTAs per SM. An unknown tile is
-// cudaErrorInvalidValue.
+// The bf16 conv (forward, or the data gradient into f32 out) with the tile
+// (bn, mt, bk) and split (splits, cps) of conv_plan(). With blocks_per_sm set
+// it launches nothing and reports the plan's dynamic shared memory and
+// resident CTAs per SM. An unknown tile is cudaErrorInvalidValue.
 template <int MODE>
 cudaError_t conv3_sm90(int bn, int mt, int bk, const __nv_bfloat16* x, const float2* stats,
                        const __nv_bfloat16* gamma, const __nv_bfloat16* beta,
                        const __nv_bfloat16* w, const __nv_bfloat16* bias,
-                       const __nv_bfloat16* res, __nv_bfloat16* out, float* ws, int B, int L,
+                       const __nv_bfloat16* res, void* out, float* ws, int B, int L,
                        int C, int G, int splits, int cps, cudaStream_t stream,
                        int* smem_out = nullptr, int* blocks_per_sm = nullptr) {
 #define CONV3_SM90_TILE(BN_, MT_, BK_)                                                         \

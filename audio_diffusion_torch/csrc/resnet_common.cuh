@@ -1,13 +1,12 @@
 // Shared by resnet_item.cu (forward) and resnet_item_bwd.cu (backward): the
-// element conversions, the cp.async helpers and the k=3 convolution kernel,
-// which runs the f32 forward's two convolutions (the bf16 ones are
-// conv3_sm90.cuh's) and, with the weight taps flipped and transposed on the
-// way into shared memory, the backward's data gradient.
+// element conversions, the cp.async helpers and the f32 k=3 convolution
+// kernel, which runs the f32 forward's two convolutions and, with the weight
+// taps flipped and transposed on the way into shared memory, the f32
+// backward's data gradient (the bf16 ones are conv3_sm90.cuh's).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -18,7 +17,6 @@ constexpr int BM = 32;        // output positions per CTA
 constexpr int BN = 64;        // output channels per CTA
 constexpr int THREADS = 128;  // 4 warps
 constexpr int LDB = BN + 8;   // smem row pitch of a weight tap (elements)
-constexpr int LDC = BN + 4;   // smem row pitch of the f32 output tile
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -62,32 +60,31 @@ enum ConvMode { kForward = 0, kForwardResidual = 1, kDataGrad = 2 };
 //   out[b, l, ci] = (sum_t sum_co x[b, l + 1 - t, co] * w[t, ci, co]) * SiLU'(n[b, l, ci]),
 //   n = (u - mean) * rstd * gamma + beta: the same loop over position l - 1 + t'
 //   with tap t' = 2 - t and each tap transposed, an identity prologue, and the
-//   activation's derivative folded into the epilogue. TO is the output's
-//   type: the activation type in the forward, f32 for the data gradient.
-// grid (ceil(L / BM), ceil(C / BN), B), THREADS threads. Needs C % 8 == 0 and
-// 16-byte aligned x and w (checked by the wrapper).
+//   activation's derivative folded into the epilogue.
+// f32 only (T = TO = float), on CUDA-core FMAs. grid (ceil(L / BM),
+// ceil(C / BN), B), THREADS threads. Needs C % 8 == 0 and 16-byte aligned x
+// and w (checked by the wrapper).
 template <typename T, int MODE, typename TO = T>
 __global__ void __launch_bounds__(THREADS)
 conv3_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
              const T* __restrict__ gamma, const T* __restrict__ beta,
              const T* __restrict__ w, const T* __restrict__ bias,
              const T* __restrict__ res, TO* __restrict__ out, int L, int C, int G) {
-  constexpr bool TC = sizeof(T) == 2;     // bf16 runs on the tensor cores
+  static_assert(sizeof(T) == 4 && sizeof(TO) == 4, "f32 only: bf16 is conv3_sm90.cuh's");
   constexpr bool DGRAD = MODE == kDataGrad;
-  constexpr int BK = TC ? 32 : 16;        // input channels per K chunk
+  constexpr int BK = 16;                  // input channels per K chunk
   constexpr int LDA = BK + 16;            // smem row pitch of the input tile (elements)
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte copy
   // Weight tile: forward [3 * BK, BN] (tap, in, out) as in memory; data
   // gradient [3 * BN, BK] (tap, in, out) too, where "in" is now the output
-  // channel of this kernel and "out" its K axis, read as a column-major B.
-  constexpr int LDW = DGRAD ? (TC ? BK + 8 : BK + 4) : LDB;
+  // channel of this kernel and "out" its K axis.
+  constexpr int LDW = DGRAD ? BK + 4 : LDB;
   constexpr int A_ELEMS = (BM + 2) * LDA;
   constexpr int W_ELEMS = (DGRAD ? 3 * BN : 3 * BK) * LDW;
   constexpr int A_VECS = (BM + 2) * BK / VEC;
   constexpr int W_VECS = 3 * BK * BN / VEC;
-  constexpr int C_BYTES = TC ? BM * LDC * 4 : 0;
-  // Two stages of [input tile | weight tile], then the f32 output tile (bf16).
-  __shared__ __align__(128) unsigned char smem[2 * (A_ELEMS + W_ELEMS) * sizeof(T) + C_BYTES];
+  // Two stages of [input tile | weight tile].
+  __shared__ __align__(128) unsigned char smem[2 * (A_ELEMS + W_ELEMS) * sizeof(T)];
   T* As[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + A_ELEMS + W_ELEMS};
   T* Ws[2] = {As[0] + A_ELEMS, As[1] + A_ELEMS};
 
@@ -125,24 +122,16 @@ conv3_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
     cp_async_commit();
   };
 
-  // bf16: warp (wm, wn) owns rows wm*16.., cols wn*32.. as two 16x16 fragments.
-  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc_tc[2];
-  // f32: thread (tr, tc) owns rows tr*4.. in registers, and cols tc*4.. (the
+  // Thread (tr, tc) owns rows tr*4.. in registers, and cols tc*4.. (the
   // data gradient: cols tc, tc+16, .., which spreads its transposed weight
   // reads over the shared-memory banks).
   const int tr = tid / 16, tcol = tid % 16;
   auto col = [&](int j) { return DGRAD ? tcol + 16 * j : tcol * 4 + j; };
   float acc[4][4];
-  if constexpr (TC) {
-    nvcuda::wmma::fill_fragment(acc_tc[0], 0.f);
-    nvcuda::wmma::fill_fragment(acc_tc[1], 0.f);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   stage(0, 0);
   for (int k0 = 0, s = 0; k0 < C; k0 += BK, s ^= 1) {
@@ -177,52 +166,29 @@ conv3_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
       __syncthreads();
     }
 
-    if constexpr (TC) {
-      using BLayout = std::conditional_t<DGRAD, nvcuda::wmma::col_major, nvcuda::wmma::row_major>;
-      const __nv_bfloat16* A = reinterpret_cast<const __nv_bfloat16*>(As[s]);
-      const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(Ws[s]);
+    // Output row i reads input row i + t (position l - 1 + t).
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
+    for (int t = 0; t < 3; ++t) {
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                 nvcuda::wmma::row_major> a;
-          // Output row i reads input row i + t (position l - 1 + t).
-          nvcuda::wmma::load_matrix_sync(a, A + (wm * 16 + t) * LDA + kk, LDA);
+      for (int kk = 0; kk < BK; ++kk) {
+        float av[4], bv[4];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-            const int n = wn * 32 + j * 16;
-            nvcuda::wmma::load_matrix_sync(
-                bf, DGRAD ? W + (t * BN + n) * LDW + kk : W + (t * BK + kk) * LDW + n, LDW);
-            nvcuda::wmma::mma_sync(acc_tc[j], a, bf, acc_tc[j]);
-          }
-        }
-      }
-    } else {
+        for (int i = 0; i < 4; ++i) av[i] = to_f32(As[s][(tr * 4 + i + t) * LDA + kk]);
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
+        for (int j = 0; j < 4; ++j)
+          bv[j] = to_f32(DGRAD ? Ws[s][(t * BN + col(j)) * LDW + kk]
+                               : Ws[s][(t * BK + kk) * LDW + col(j)]);
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          float av[4], bv[4];
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = to_f32(As[s][(tr * 4 + i + t) * LDA + kk]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            bv[j] = to_f32(DGRAD ? Ws[s][(t * BN + col(j)) * LDW + kk]
-                                 : Ws[s][(t * BK + kk) * LDW + col(j)]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
     __syncthreads();  // buffer s is refilled by the next iteration's stage()
   }
 
-  // Epilogue in f32, one rounding to the activation type. Forward: + bias
-  // (+ residual). Data gradient: times SiLU'(n) at the stage input.
+  // Epilogue. Forward: + bias (+ residual). Data gradient: times SiLU'(n) at
+  // the stage input.
   TO* ob = out + (size_t)b * L * C;
   const T* rb = MODE != kForward ? res + (size_t)b * L * C : nullptr;
   auto store = [&](int i, int j, float v) {
@@ -239,23 +205,10 @@ conv3_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
       ob[(size_t)l * C + co] = from_f32<TO>(v);
     }
   };
-  if constexpr (TC) {
-    float* Cs = reinterpret_cast<float*>(smem + 2 * (A_ELEMS + W_ELEMS) * sizeof(T));
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(Cs + (wm * 16) * LDC + wn * 32 + j * 16, acc_tc[j], LDC,
-                                      nvcuda::wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
-      const int i = idx / BN, j = idx % BN;
-      store(i, j, Cs[i * LDC + j]);
-    }
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) store(tr * 4 + i, col(j), acc[i][j]);
-  }
+    for (int j = 0; j < 4; ++j) store(tr * 4 + i, col(j), acc[i][j]);
 }
 
 }  // namespace

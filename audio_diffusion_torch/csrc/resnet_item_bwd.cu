@@ -31,22 +31,28 @@
 // about twenty activation-sized tensors and 12*C^2 weights and weight
 // gradients; like the forward, the shallow levels and (at batch 1) the
 // deepest are bound by bytes, the middle by operations. In practice the first
-// limits are launch latency (18 launches per item) and, at level 0, tiles that
-// are 64 channels wide for 8 channels.
+// limits are launch latency (18 launches per item) and filling the card with
+// the two products, which wgrad_sm90.cuh and conv3_sm90.cuh answer (their
+// headers say how).
 //
 // The kernels, in launch order per stage:
-//   conv3_wgrad      dK as a product whose inner dimension is B*L: one
-//                    64 (in) x 64 (out) tile of all three taps per CTA, over a
-//                    slab of 32-row chunks of (batch, position); chunks arrive
-//                    by cp.async, double-buffered; the input chunk is
-//                    normalised and activated in shared memory. bf16 on the
-//                    tensor cores (WMMA, A column-major), f32 on FMAs. Each
-//                    slab writes an f32 partial [3, C, C];
-//   wgrad_finalize   sums the slabs in order and rounds once. The caller picks
-//                    the slab count: many slabs where C is small and B*L long
-//                    (level 0: a reduction over millions of rows into 3x8x8),
-//                    one or two where C = 1024 (a partial is 12.6 MB);
-//   conv3 (kDataGrad, resnet_common.cuh) dn, the forward's loop reused;
+//   weight gradient  dK as a product whose inner dimension is B*L, split into
+//                    slabs of position chunks, each slab writing an f32
+//                    partial [3, C, C]; the input chunk is normalised and
+//                    activated in shared memory. bf16: wgrad_sm90_kernel
+//                    (wgmma, C >= 64) or wgrad_narrow_kernel (mma.sync, a
+//                    3C x C tile for C <= 32) from wgrad_sm90.cuh, with the
+//                    slabs of wgrad_plan() in ops/kernels/resnet.py, a single
+//                    slab writing dK itself. f32: conv3_wgrad_kernel, one
+//                    64 x 64 tile of all three taps per CTA on FMAs over
+//                    32-position chunks, double-buffered;
+//   wgrad_finalize   sums the slabs in order and rounds once (one thread per
+//                    element, or over many slabs 4 or 32 warps per 32
+//                    elements);
+//   data gradient    dn: bf16 conv3_sm90_kernel<kDataGrad> (conv3_sm90.cuh),
+//                    the forward's wgmma conv with the taps flipped and a
+//                    K-major B, split-K and tile from conv_plan(); f32
+//                    conv3_kernel<kDataGrad> (resnet_common.cuh);
 //   gn_bwd_partial   per-(L tile, channel) sums of dn, dn * xh and dv (stage 1),
 //   gn_bwd_finalize  per-(batch, channel) sums in a fixed order, and the two
 //                    group means (stage 2),
@@ -59,13 +65,16 @@
 // to bf16 it would sit on a grid that the GroupNorm backward's small mean
 // terms cannot move, and the sums over 2^18 positions drift.
 #include "resnet_common.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace {
 
 constexpr int RED_THREADS = 256;
-constexpr int WG_TM = 64;  // input channels (rows of dK) per CTA
-constexpr int WG_TN = 64;  // output channels (cols of dK) per CTA
-constexpr int WG_BL = 32;  // positions per chunk of the inner dimension
+// The f32 weight gradient's tile: input channels (rows of dK) and output
+// channels (cols of dK) per CTA, positions per chunk of the inner dimension.
+constexpr int WG_TM = 64;
+constexpr int WG_TN = 64;
+constexpr int WG_BL = 32;
 
 // Sums over the rows of a [rows, C] slice, 256 threads: thread (ry, cx) takes
 // channel c0 + cx and rows ry, ry + rpb, ..; the rpb row lanes are then
@@ -229,14 +238,14 @@ __global__ void gn_bwd_apply_kernel(const TD* d, const T* __restrict__ u, const 
 // act as in the forward conv (zero outside [0, L)). A chunk q is WG_BL
 // positions of one batch row: b = q / chunks_per_row, l0 = (q % chunks_per_row)
 // * WG_BL; slab z takes chunks [z * chunks_per_slab, (z + 1) * chunks_per_slab).
+// f32 only (the bf16 weight gradient is wgrad_sm90.cuh's), on FMAs.
 // grid (ceil(C / WG_TM) * ceil(C / WG_TN), n_slabs), THREADS threads.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-conv3_wgrad_kernel(const T* __restrict__ u, const float2* __restrict__ stats,
-                   const T* __restrict__ gamma, const T* __restrict__ beta,
-                   const T* __restrict__ dv, float* __restrict__ partial, int L, int C, int G,
+conv3_wgrad_kernel(const float* __restrict__ u, const float2* __restrict__ stats,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   const float* __restrict__ dv, float* __restrict__ partial, int L, int C, int G,
                    int chunks_per_row, int total_chunks, int chunks_per_slab) {
-  constexpr bool TC = sizeof(T) == 2;
+  using T = float;
   constexpr int LDA = WG_TM + 16;  // pitch of the input chunk [WG_BL + 2, WG_TM]
   constexpr int LDD = WG_TN + 8;   // pitch of the gradient chunk [WG_BL, WG_TN]
   constexpr int VEC = 16 / sizeof(T);
@@ -244,9 +253,7 @@ conv3_wgrad_kernel(const T* __restrict__ u, const float2* __restrict__ stats,
   constexpr int D_ELEMS = WG_BL * LDD;
   constexpr int A_VECS = (WG_BL + 2) * WG_TM / VEC;
   constexpr int D_VECS = WG_BL * WG_TN / VEC;
-  // Two stages of [input chunk | gradient chunk]; the bf16 epilogue reuses
-  // them as one f32 [WG_TM, LDC] tile.
-  static_assert(!TC || 2 * (A_ELEMS + D_ELEMS) * sizeof(T) >= WG_TM * LDC * 4, "epilogue tile");
+  // Two stages of [input chunk | gradient chunk].
   __shared__ __align__(128) unsigned char smem[2 * (A_ELEMS + D_ELEMS) * sizeof(T)];
   T* As[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + A_ELEMS + D_ELEMS};
   T* Ds[2] = {As[0] + A_ELEMS, As[1] + A_ELEMS};
@@ -278,33 +285,21 @@ conv3_wgrad_kernel(const T* __restrict__ u, const float2* __restrict__ stats,
     cp_async_commit();
   };
 
-  // bf16: warp (wm, wn) owns rows wm*32.., cols wn*32.. of every tap: 3 x 2 x 2
-  // fragments. f32: thread (tr, tc) owns rows tr*8.., cols tc*4.. of every tap.
-  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc_tc[3][2][2];
+  // Thread (tr, tc) owns rows tr*8.., cols tc*4.. of every tap.
   const int tr = tid / 16, tcol = tid % 16;
   float acc[3][8][4];
-  if constexpr (TC) {
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc_tc[t][i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
-  }
+      for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
 
   // Each thread normalises one channel of the input chunk (THREADS is a
   // multiple of WG_TM); its scale and bias do not change between chunks.
   const int nm = tid % WG_TM, nc = m0 + nm;
-  const float ng = nc < C ? to_f32(gamma[nc]) : 0.f;
-  const float nb = nc < C ? to_f32(beta[nc]) : 0.f;
+  const float ng = nc < C ? gamma[nc] : 0.f;
+  const float nb = nc < C ? beta[nc] : 0.f;
 
   if (q_begin < q_end) stage(q_begin, 0);
   for (int q = q_begin, s = 0; q < q_end; ++q, s ^= 1) {
@@ -323,106 +318,96 @@ conv3_wgrad_kernel(const T* __restrict__ u, const float2* __restrict__ stats,
       for (int r = tid / WG_TM; r < WG_BL + 2; r += THREADS / WG_TM) {
         const int l = l0 - 1 + r;
         float v = 0.f;
-        if (l >= 0 && l < L && nc < C)
-          v = silu(gn_affine(to_f32(As[s][r * LDA + nm]), ms.x, ms.y, ng, nb));
-        As[s][r * LDA + nm] = from_f32<T>(v);
+        if (l >= 0 && l < L && nc < C) v = silu(gn_affine(As[s][r * LDA + nm], ms.x, ms.y, ng, nb));
+        As[s][r * LDA + nm] = v;
       }
     }
     __syncthreads();
 
-    if constexpr (TC) {
-      const __nv_bfloat16* A = reinterpret_cast<const __nv_bfloat16*>(As[s]);
-      const __nv_bfloat16* D = reinterpret_cast<const __nv_bfloat16*>(Ds[s]);
-#pragma unroll
-      for (int kk = 0; kk < WG_BL; kk += 16) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               nvcuda::wmma::row_major> bf[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          nvcuda::wmma::load_matrix_sync(bf[j], D + kk * LDD + wn * 32 + j * 16, LDD);
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            // A[m = ci, k = position]: activated row k + t of the chunk
-            // (position l - 1 + t), channels contiguous: column-major.
-            nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                   nvcuda::wmma::col_major> a;
-            nvcuda::wmma::load_matrix_sync(a, A + (kk + t) * LDA + wm * 32 + i * 16, LDA);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              nvcuda::wmma::mma_sync(acc_tc[t][i][j], a, bf[j], acc_tc[t][i][j]);
-          }
-        }
-      }
-    } else {
 #pragma unroll 4
-      for (int k = 0; k < WG_BL; ++k) {
-        float dvv[4];
+    for (int k = 0; k < WG_BL; ++k) {
+      float dvv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dvv[j] = to_f32(Ds[s][k * LDD + tcol * 4 + j]);
+      for (int j = 0; j < 4; ++j) dvv[j] = Ds[s][k * LDD + tcol * 4 + j];
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          float av[8];
+      for (int t = 0; t < 3; ++t) {
+        float av[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) av[i] = to_f32(As[s][(k + t) * LDA + tr * 8 + i]);
+        for (int i = 0; i < 8; ++i) av[i] = As[s][(k + t) * LDA + tr * 8 + i];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[t][i][j] = fmaf(av[i], dvv[j], acc[t][i][j]);
-        }
+          for (int j = 0; j < 4; ++j) acc[t][i][j] = fmaf(av[i], dvv[j], acc[t][i][j]);
       }
     }
     __syncthreads();  // buffer s is refilled by the next iteration's stage()
   }
 
   float* pz = partial + (size_t)slab * 3 * C * C;
-  if constexpr (TC) {
-    float* Cs = reinterpret_cast<float*>(smem);
 #pragma unroll
-    for (int t = 0; t < 3; ++t) {
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          nvcuda::wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                          acc_tc[t][i][j], LDC, nvcuda::wmma::mem_row_major);
+      for (int j = 0; j < 4; ++j) {
+        const int ci = m0 + tr * 8 + i, co = n0 + tcol * 4 + j;
+        if (ci < C && co < C) pz[((size_t)t * C + ci) * C + co] = acc[t][i][j];
+      }
+}
+
+// dk[i] = the slabs' partials summed in a fixed order, rounded once.
+// SW = 1: one thread per element, slabs in order. SW > 1 (for many slabs of
+// few elements: level 0's 3 x 8 x 8 from 512): a block of SW warps takes 32
+// consecutive elements, one per lane, so that every load is coalesced; warp
+// w sums slabs w, w + SW, .. in order, and lane i of warp 0 sums the SW
+// warps' sums in order. finalize_groups() picks SW from the shape alone.
+template <typename T, int SW>
+__global__ void __launch_bounds__(SW == 1 ? 256 : 32 * SW)
+wgrad_finalize_kernel(const float* __restrict__ partial, T* __restrict__ dk, int n_slabs,
+                      size_t n) {
+  if constexpr (SW == 1) {
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (size_t)gridDim.x * blockDim.x) {
+      float s = 0.f;
+      for (int z = 0; z < n_slabs; ++z) s += partial[(size_t)z * n + i];
+      dk[i] = from_f32<T>(s);
+    }
+  } else {
+    __shared__ float part[SW][33];
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    for (size_t i0 = (size_t)blockIdx.x * 32; i0 < n; i0 += (size_t)gridDim.x * 32) {
+      const size_t i = i0 + lane;
+      float s = 0.f;
+      if (i < n) {
+#pragma unroll 4
+        for (int z = w; z < n_slabs; z += SW) s += partial[(size_t)z * n + i];
+      }
+      part[w][lane] = s;
       __syncthreads();
-      for (int idx = tid; idx < WG_TM * WG_TN; idx += THREADS) {
-        const int i = idx / WG_TN, j = idx % WG_TN;
-        const int ci = m0 + i, co = n0 + j;
-        if (ci < C && co < C) pz[((size_t)t * C + ci) * C + co] = Cs[i * LDC + j];
+      if (w == 0 && i < n) {
+        float t = 0.f;
+#pragma unroll
+        for (int g = 0; g < SW; ++g) t += part[g][lane];
+        dk[i] = from_f32<T>(t);
       }
       __syncthreads();
     }
-  } else {
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ci = m0 + tr * 8 + i, co = n0 + tcol * 4 + j;
-          if (ci < C && co < C) pz[((size_t)t * C + ci) * C + co] = acc[t][i][j];
-        }
-  }
-}
-
-// dk[i] = the slabs' partials summed in order, rounded once.
-template <typename T>
-__global__ void wgrad_finalize_kernel(const float* __restrict__ partial, T* __restrict__ dk,
-                                      int n_slabs, size_t n) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < n_slabs; ++z) s += partial[(size_t)z * n + i];
-    dk[i] = from_f32<T>(s);
   }
 }
 
 int elementwise_blocks(size_t total) {
   const size_t want = (total + 255) / 256;
   return want < 132 * 16 ? (int)want : 132 * 16;
+}
+
+// Slab groups of wgrad_finalize: as many as keep n * SW threads within about
+// one wave of the card (2048 threads on each of 132 SMs), and at most half
+// the slabs.
+int finalize_groups(size_t n, int n_slabs) {
+  const size_t wave = (size_t)132 * 2048;
+  if (n * 32 <= wave && n_slabs >= 64) return 32;
+  if (n * 4 <= wave && n_slabs >= 8) return 4;
+  return 1;
 }
 
 #define LAUNCH_CHECK()                                  \
@@ -432,7 +417,9 @@ int elementwise_blocks(size_t total) {
   } while (0)
 
 struct Shape {
-  int B, L, C, G, rows_per_tile, chunks_per_slab, n_slabs;
+  int B, L, C, G, rows_per_tile;
+  int wtile, wchunk, chunks_per_slab, n_slabs;  // the weight gradient's plan
+  int dbn, dmt, dbk, dsplits, dcps;           // the bf16 data gradient's plan
   float eps;
 };
 
@@ -440,7 +427,8 @@ struct Scratch {
   float* red_partial;  // [B, n_tiles, C, 3]
   float* col;          // [B, C, 3]
   float2* means;       // [B, G]
-  float* wpartial;     // [n_slabs, 3, C, C]
+  float* wpartial;     // [n_slabs, 3, C, C] (none for one bf16 slab)
+  float* dgrad_ws;     // [dsplits, B, L, C] (bf16 with split-K only)
 };
 
 // The GroupNorm backward of one stage: d is the gradient of the stage's
@@ -472,21 +460,42 @@ template <typename T>
 int conv_backward(const T* u, const T* dv, const float2* stats, const T* gamma, const T* beta,
                   const T* k, T* dk, float* dn_out, const Shape& sh, const Scratch& sc,
                   cudaStream_t stream) {
-  const int chunks_per_row = (sh.L + WG_BL - 1) / WG_BL;
-  const int tiles = ((sh.C + WG_TM - 1) / WG_TM) * ((sh.C + WG_TN - 1) / WG_TN);
-  conv3_wgrad_kernel<T><<<dim3(tiles, sh.n_slabs), THREADS, 0, stream>>>(
-      u, stats, gamma, beta, dv, sc.wpartial, sh.L, sh.C, sh.G, chunks_per_row,
-      sh.B * chunks_per_row, sh.chunks_per_slab);
-  LAUNCH_CHECK();
   const size_t n = (size_t)3 * sh.C * sh.C;
-  wgrad_finalize_kernel<T><<<elementwise_blocks(n), 256, 0, stream>>>(sc.wpartial, dk, sh.n_slabs,
-                                                                     n);
-  LAUNCH_CHECK();
-  const dim3 grid((sh.L + BM - 1) / BM, (sh.C + BN - 1) / BN, sh.B);
-  conv3_kernel<T, kDataGrad, float><<<grid, THREADS, 0, stream>>>(dv, stats, gamma, beta, k, nullptr, u,
-                                                           dn_out, sh.L, sh.C, sh.G);
-  LAUNCH_CHECK();
-  return 0;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    int err = (int)wgrad_sm90(sh.wtile, sh.wchunk, u, stats, gamma, beta, dv, sc.wpartial, dk,
+                              sh.B, sh.L, sh.C, sh.G, sh.chunks_per_slab, sh.n_slabs, stream);
+    if (err) return err;
+    const int groups = finalize_groups(n, sh.n_slabs);
+    const int blocks = (int)((n + 31) / 32 < 132 * 16 ? (n + 31) / 32 : 132 * 16);
+    if (sh.n_slabs > 1 && groups == 32)
+      wgrad_finalize_kernel<T, 32><<<blocks, 32 * 32, 0, stream>>>(sc.wpartial, dk, sh.n_slabs,
+                                                                    n);
+    else if (sh.n_slabs > 1 && groups == 4)
+      wgrad_finalize_kernel<T, 4><<<blocks, 32 * 4, 0, stream>>>(sc.wpartial, dk, sh.n_slabs, n);
+    else if (sh.n_slabs > 1)
+      wgrad_finalize_kernel<T, 1><<<elementwise_blocks(n), 256, 0, stream>>>(sc.wpartial, dk,
+                                                                           sh.n_slabs, n);
+    LAUNCH_CHECK();
+    return (int)conv3_sm90<kDataGrad>(sh.dbn, sh.dmt, sh.dbk, dv, stats, gamma, beta, k, nullptr,
+                                      u, dn_out, sc.dgrad_ws, sh.B, sh.L, sh.C, sh.G, sh.dsplits,
+                                      sh.dcps, stream);
+  } else {
+    const int chunks_per_row = (sh.L + WG_BL - 1) / WG_BL;
+    const int tiles = ((sh.C + WG_TM - 1) / WG_TM) * ((sh.C + WG_TN - 1) / WG_TN);
+    conv3_wgrad_kernel<<<dim3(tiles, sh.n_slabs), THREADS, 0, stream>>>(
+        u, stats, gamma, beta, dv, sc.wpartial, sh.L, sh.C, sh.G, chunks_per_row,
+        sh.B * chunks_per_row, sh.chunks_per_slab);
+    LAUNCH_CHECK();
+    wgrad_finalize_kernel<T, 1><<<elementwise_blocks(n), 256, 0, stream>>>(sc.wpartial, dk,
+                                                                         sh.n_slabs, n);
+    LAUNCH_CHECK();
+    const dim3 grid((sh.L + BM - 1) / BM, (sh.C + BN - 1) / BN, sh.B);
+    conv3_kernel<T, kDataGrad, float><<<grid, THREADS, 0, stream>>>(dv, stats, gamma, beta, k,
+                                                                    nullptr, u, dn_out, sh.L,
+                                                                    sh.C, sh.G);
+    LAUNCH_CHECK();
+    return 0;
+  }
 }
 
 template <typename T>
@@ -535,9 +544,15 @@ int item_backward(const ItemBackwardArgs<T>& a, const float2* stats, const Shape
 //      [3, B, G, 2] f32 as the forward left them; the forward's parameters
 //      (conv biases and the modulation shift are not needed);
 // out: the 13 gradients, each shaped and typed like its input;
-// scratch: dy, dh [B, L, C]; dn f32 [B, L, C]; red_partial f32 [B, ceil(L / rows_per_tile), C, 3];
-//      col f32 [B, C, 3]; means f32 [B, G, 2]; wpartial f32 [n_slabs, 3, C, C],
-//      n_slabs = ceil(B * ceil(L / 32) / chunks_per_slab).
+// scratch: dy, dh [B, L, C]; one f32 buffer holding, at the given offsets
+//      (in floats, each a multiple of 4): dn [B, L, C]; red_partial
+//      [B, ceil(L / rows_per_tile), C, 3]; col [B, C, 3]; means [B, G, 2];
+//      wpartial [wslabs, 3, C, C] (f32 always; bf16 when wslabs > 1);
+//      dgrad_ws [dsplits, B, L, C] (bf16 when dsplits > 1);
+// plans: the weight gradient's (wtile, wchunk positions a chunk, chunks per
+//      slab, slabs: wgrad_plan(); the f32 tile is 0 with 32-position chunks)
+//      and the bf16 data gradient's (conv_plan()'s bn, mt, bk, splits, cps;
+//      ignored for f32).
 // Without modulation the modulation pointers and dy are not touched. Returns
 // the first CUDA error code seen after a launch, 0 on success.
 extern "C" int resnet_item_backward(
@@ -545,13 +560,17 @@ extern "C" int resnet_item_backward(
     const void* gn1s, const void* gn1b, const void* k1, const void* gn2s, const void* gn2b,
     const void* k2, const void* mods, const void* mgs, const void* mgb, void* dx, void* dgn1s,
     void* dgn1b, void* dk1, void* dc1b, void* dgn2s, void* dgn2b, void* dk2, void* dc2b,
-    void* dmods, void* dmodb, void* dmgs, void* dmgb, void* dy, void* dh, void* dn,
-    void* red_partial, void* col, void* means, void* wpartial, int B, int L, int C, int G,
-    int rows_per_tile, int chunks_per_slab, int n_slabs, float eps, int use_modulation,
-    void* stream) {
-  const Shape sh{B, L, C, G, rows_per_tile, chunks_per_slab, n_slabs, eps};
-  const Scratch sc{static_cast<float*>(red_partial), static_cast<float*>(col),
-                   static_cast<float2*>(means), static_cast<float*>(wpartial)};
+    void* dmods, void* dmodb, void* dmgs, void* dmgb, void* dy, void* dh, void* scratch,
+    long long dn_off, long long red_off, long long col_off, long long means_off,
+    long long wpartial_off, long long dgrad_ws_off, int B, int L, int C, int G,
+    int rows_per_tile, int wtile, int wchunk, int chunks_per_slab, int n_slabs, int dbn,
+    int dmt, int dbk, int dsplits, int dcps, float eps, int use_modulation, void* stream) {
+  const Shape sh{B, L, C, G, rows_per_tile, wtile, wchunk, chunks_per_slab, n_slabs,
+                 dbn, dmt, dbk, dsplits, dcps, eps};
+  float* f = static_cast<float*>(scratch);
+  const Scratch sc{f + red_off, f + col_off, reinterpret_cast<float2*>(f + means_off),
+                   f + wpartial_off, f + dgrad_ws_off};
+  float* dn = f + dn_off;
   auto s = static_cast<cudaStream_t>(stream);
   auto st = static_cast<const float2*>(stats);
   if (dtype == 0) {
@@ -561,7 +580,7 @@ extern "C" int resnet_item_backward(
         (const T*)k1, (const T*)gn2s, (const T*)gn2b, (const T*)k2, (const T*)mods,
         (const T*)mgs, (const T*)mgb, (T*)dx, (T*)dgn1s, (T*)dgn1b, (T*)dk1, (T*)dc1b,
         (T*)dgn2s, (T*)dgn2b, (T*)dk2, (T*)dc2b, (T*)dmods, (T*)dmodb, (T*)dmgs, (T*)dmgb,
-        (T*)dy, (T*)dh, (float*)dn};
+        (T*)dy, (T*)dh, dn};
     return item_backward<T>(a, st, sh, sc, use_modulation, s);
   }
   if (dtype == 1) {
@@ -571,8 +590,26 @@ extern "C" int resnet_item_backward(
         (const T*)k1, (const T*)gn2s, (const T*)gn2b, (const T*)k2, (const T*)mods,
         (const T*)mgs, (const T*)mgb, (T*)dx, (T*)dgn1s, (T*)dgn1b, (T*)dk1, (T*)dc1b,
         (T*)dgn2s, (T*)dgn2b, (T*)dk2, (T*)dc2b, (T*)dmods, (T*)dmodb, (T*)dmgs, (T*)dmgb,
-        (T*)dy, (T*)dh, (float*)dn};
+        (T*)dy, (T*)dh, dn};
     return item_backward<T>(a, st, sh, sc, use_modulation, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The occupancy of the bf16 backward's two convolutions without a launch:
+// the dynamic shared memory and resident CTAs per SM of the data gradient's
+// tile (bn x 64*mt rows, K chunks of bk, cps chunks per split; conv_plan())
+// and of the weight gradient's tile (tile, chunk, cps chunks per slab;
+// wgrad_plan()). Each returns a CUDA error code, 0 on success.
+extern "C" int resnet_dgrad_occupancy(int bn, int mt, int bk, int cps, int* smem,
+                                      int* blocks_per_sm) {
+  return (int)conv3_sm90<kDataGrad>(bn, mt, bk, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1, 1, cps,
+                                    nullptr, smem, blocks_per_sm);
+}
+
+extern "C" int resnet_wgrad_occupancy(int tile, int chunk, int cps, int* smem,
+                                      int* blocks_per_sm) {
+  return (int)wgrad_sm90(tile, chunk, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, 0, 0, 0, 1, cps, 1, nullptr, smem, blocks_per_sm);
 }

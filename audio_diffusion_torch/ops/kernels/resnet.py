@@ -14,7 +14,9 @@ autograd's; a CUDA tensor takes the kernels or raises. Where autograd needs a
 gradient, the forward keeps its input, conv 1's output, the item before its
 modulation and the three GroupNorm statistics, and the backward is the
 hand-written chain of ``audio_diffusion_torch/csrc/resnet_item_bwd.cu``
-(counterpart of the Pallas kernel's custom VJP).
+(counterpart of the Pallas kernel's custom VJP). In bf16 its data gradients
+run the forward's conv (``conv3_sm90.cuh``, :func:`conv_plan`) and its weight
+gradients ``csrc/wgrad_sm90.cuh`` (:func:`wgrad_plan`).
 """
 from __future__ import annotations
 
@@ -29,18 +31,25 @@ from torch import Tensor
 from .build import load_library
 
 __all__ = ["fused_resnet_item", "resnet_item_reference", "conv_plan",
-           "conv_occupancy"]
+           "conv_occupancy", "wgrad_plan", "backward_occupancy"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements each CTA of the statistics pass sums (sets its L tile).
 _STATS_ELEMS_PER_CTA = 8192
-# The weight gradient sums B·L positions in slabs of 32-position chunks, each
-# slab writing an f32 [3, C, C] partial: about this many CTAs, within this
-# many bytes of partials.
-_WGRAD_CHUNK = 32
-_WGRAD_TILE = 64
-_WGRAD_CTAS = 512
+# The weight gradient sums B·L positions in slabs of position chunks, each
+# slab writing an f32 [3, C, C] partial, all of them within this many bytes.
+# bf16 (csrc/wgrad_sm90.cuh), for C up to each key: the tile's output
+# channels per CTA (8 and 32: the narrow mma.sync kernel, whole C; 64 and
+# 128: wgmma, by 64 input channels), positions per chunk (on an H100, 128
+# positions for the 128 tile were up to 17% faster than 64, and never more
+# than 1% slower; PERF.md) and the CTAs an H100 holds per SM with a full
+# ring, as the CUDA occupancy API reports them (on the card the plan asks
+# the API: _wgrad_resident). f32 (csrc/resnet_item_bwd.cu): one 64 x 64
+# tile over 32-position chunks, about _WGRAD_F32_CTAS CTAs.
+_WGRAD_TILES = ((8, 8, 256, 5), (32, 32, 64, 2), (64, 64, 64, 2),
+                (None, 128, 128, 1))
 _WGRAD_PARTIAL_BYTES = 16 * 2**20
+_WGRAD_F32_CTAS = 512
 # The bf16 forward conv (csrc/conv3_sm90.cuh): output channels per CTA for
 # C up to each key, the most and the fewest 64-row sub-tiles per CTA, and
 # the K chunk of that tile; an H100's SMs; the cap on split-K's f32
@@ -121,11 +130,52 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _backward_kernel():
     fn = load_library("resnet_item_bwd").resnet_item_backward
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 34
-                   + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 30
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 14
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _occupancy(fn, *plan: int):
+    """(dynamic shared memory, resident CTAs per SM) of one kernel's plan on
+    the current device, from a library's occupancy entry (no launch)."""
+    fn.argtypes = ([ctypes.c_int] * len(plan)
+                   + [ctypes.POINTER(ctypes.c_int)] * 2)
+    fn.restype = ctypes.c_int
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(*plan, ctypes.byref(smem), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return smem.value, blocks.value
+
+
+def _with_fill(plan: dict, sms: int, smem: int, blocks: int) -> dict:
+    """``plan`` with its occupancy and the share of one full wave its grid
+    fills (above 1: more than one wave)."""
+    return dict(plan, smem_bytes=smem, blocks_per_sm=blocks, sms=sms,
+                wave_fill=plan["ctas"] / (sms * blocks))
+
+
+def backward_occupancy(channels: int, length: int, batch: int = 1) -> dict:
+    """The plans of the bf16 backward's two convolutions at one item shape
+    (:func:`conv_plan` for the data gradient, :func:`wgrad_plan` for the
+    weight gradient, as the backward takes them), each with its dynamic
+    shared memory, resident CTAs per SM and the share of one full wave it
+    fills (needs a CUDA device)."""
+    dev = torch.cuda.current_device()
+    sms = _sm_count(dev)
+    dplan = conv_plan(batch, length, channels, sms)
+    wplan = wgrad_plan(batch, length, channels, sms,
+                       _wgrad_resident(dev, channels))
+    lib = load_library("resnet_item_bwd")
+    return dict(
+        data_gradient=_with_fill(dplan, sms, *_occupancy(
+            lib.resnet_dgrad_occupancy, dplan["bn"], dplan["mt"],
+            dplan["bk"], dplan["cps"])),
+        weight_gradient=_with_fill(wplan, sms, *_occupancy(
+            lib.resnet_wgrad_occupancy, wplan["tile"], wplan["chunk"],
+            wplan["cps"])))
 
 
 def conv_occupancy(channels: int, length: int, batch: int = 1) -> dict:
@@ -135,17 +185,21 @@ def conv_occupancy(channels: int, length: int, batch: int = 1) -> dict:
     CUDA device)."""
     sms = _sm_count(torch.cuda.current_device())
     plan = conv_plan(batch, length, channels, sms)
-    fn = load_library("resnet_item").resnet_conv_plan_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(plan["bn"], plan["mt"], plan["bk"], plan["cps"],
-             ctypes.byref(smem), ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"conv_occupancy: CUDA error {err}")
-    return dict(plan, smem_bytes=smem.value, blocks_per_sm=blocks.value,
-                sms=sms, wave_fill=min(1.0, plan["ctas"]
-                                       / (sms * blocks.value)))
+    return _with_fill(plan, sms, *_occupancy(
+        load_library("resnet_item").resnet_conv_plan_occupancy, plan["bn"],
+        plan["mt"], plan["bk"], plan["cps"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_resident(device_index: int, channels: int) -> int:
+    """CTAs per SM that one device holds of the bf16 weight gradient's tile
+    for ``channels`` with a full ring of chunks, from the CUDA occupancy
+    API."""
+    _, tile, chunk, _ = _wgrad_tile(channels)
+    with torch.cuda.device(device_index):
+        # Any chunks per slab from the ring's depth up give the full ring.
+        return _occupancy(load_library("resnet_item_bwd")
+                          .resnet_wgrad_occupancy, tile, chunk, 2**30)[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,7 +209,9 @@ def _sm_count(device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def conv_plan(batch: int, length: int, channels: int, sms: int = _SMS) -> dict:
-    """Tile and split-K of the bf16 forward conv at one item shape.
+    """Tile and split-K of the bf16 conv at one item shape: the forward's
+    two convs and the backward's two data gradients, whose shapes are the
+    same (M = L rows, N = C, K = 3·C).
 
     ``bn`` output channels (a multiple of 8 up to 128, the narrowest of
     8, 32, 64, 128 that covers C) by ``64 * mt`` rows per CTA, K chunks of
@@ -167,12 +223,12 @@ def conv_plan(batch: int, length: int, channels: int, sms: int = _SMS) -> dict:
     If the grid still fills less than a wave of ``sms`` CTAs, K's
     ``chunks`` are split: each of ``splits`` CTAs per output tile takes
     ``cps`` consecutive chunks (all three taps of each; the last split may
-    take fewer). The split count is the one whose
-    grid comes closest to one wave of ``resident`` CTAs on each SM (the
-    fewer splits on a tie), as long as their f32 partials
-    (``workspace_bytes``) stay within ``_CONV_WORKSPACE_BYTES``: on an H100
-    at batch 1 that was the fastest split, or within 2% of it, at every
-    level from 3 to 8 (``conv_plan_sweep.py``; PERF.md)."""
+    take fewer). The split count is :func:`_split`'s for ``resident`` CTAs
+    on each SM, with f32 partials (``workspace_bytes``) within
+    ``_CONV_WORKSPACE_BYTES``. At the flagship's levels these are the
+    splits whose grid comes nearest one wave, which on an H100 at batch 1
+    were the fastest, or within 2% of it, at every level from 3 to 8
+    (``conv_plan_sweep.py``; PERF.md)."""
     bn, mt, mt_min, bk = next((t for t in _CONV_TILES if channels <= t[0]),
                               _CONV_TILES[-1])
     ch_tiles = -(-channels // bn)
@@ -186,35 +242,105 @@ def conv_plan(batch: int, length: int, channels: int, sms: int = _SMS) -> dict:
     resident = 1 if bn * mt > 128 else 2
     splits, cps = 1, chunks
     if tiles < sms:
-        best = None
-        for want in range(1, chunks + 1):
-            c = -(-chunks // want)
-            s = -(-chunks // c)
-            if s > 1 and s * partial > _CONV_WORKSPACE_BYTES:
-                break
-            gap = abs(tiles * s - resident * sms)
-            if best is None or gap < best[0]:
-                best = (gap, s, c)
-        _, splits, cps = best
+        splits, cps = _split(tiles, chunks, partial, _CONV_WORKSPACE_BYTES,
+                             resident * sms)
     return dict(bn=bn, mt=mt, bk=bk, chunks=chunks, splits=splits, cps=cps,
                 ctas=tiles * splits, resident=resident,
                 workspace_bytes=partial * splits if splits > 1 else 0)
 
 
-def wgrad_slabs(batch: int, length: int, channels: int):
-    """(chunks per slab, slabs) of the weight-gradient kernel at one item
-    shape: enough slabs for about ``_WGRAD_CTAS`` CTAs, as long as their f32
-    partials stay within ``_WGRAD_PARTIAL_BYTES``."""
-    chunks = batch * -(-length // _WGRAD_CHUNK)
-    tiles = (-(-channels // _WGRAD_TILE)) ** 2
-    fit = _WGRAD_PARTIAL_BYTES // (12 * channels * channels)
-    slabs = max(1, min(chunks, -(-_WGRAD_CTAS // tiles), fit))
-    per_slab = -(-chunks // slabs)
-    return per_slab, -(-chunks // per_slab)
+def _split(tiles: int, chunks: int, part_bytes: int, cap: int,
+           wave: int):
+    """(parts, chunks per part): ``chunks`` consecutive chunks of a sum
+    shared among ``parts`` CTAs for each of ``tiles`` output tiles, each
+    part taking ``cps`` of them (the last may take fewer). The split is the
+    one that takes the fewest chunk-times, a CTA's chunks times the waves of
+    ``wave`` resident CTAs its grid needs, with the fewer parts on a tie, as
+    long as the parts' partials of ``part_bytes`` each stay within ``cap``
+    (a single part writes no partial)."""
+    best = None
+    for want in range(1, chunks + 1):
+        cps = -(-chunks // want)
+        parts = -(-chunks // cps)
+        if parts > 1 and parts * part_bytes > cap:
+            break
+        key = (-(-tiles * parts // wave) * cps, parts)
+        if best is None or key < best[0]:
+            best = key, parts, cps
+    return best[1], best[2]
+
+
+def _wgrad_tile(channels: int):
+    """The _WGRAD_TILES row of the bf16 weight gradient at ``channels``."""
+    return next(t for t in _WGRAD_TILES if t[0] is None or channels <= t[0])
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(batch: int, length: int, channels: int, sms: int = _SMS,
+               resident: Optional[int] = None, bf16: bool = True) -> dict:
+    """Tile and slabs of the weight gradient at one item shape.
+
+    dK [3, C, C] is a product over the ``batch * ceil(length / chunk)``
+    position ``chunks``; each of ``slabs`` CTAs per output tile takes
+    ``cps`` consecutive chunks (the last slab may take fewer) and writes an
+    f32 partial [3, C, C] (``partial_bytes`` in all), summed in slab order
+    afterwards. bf16: ``tile`` is the CTA's output channels (8 or 32: the
+    narrow kernel's exact 3C x C tile for C up to 32; 64 or 128: the wgmma
+    kernel, by 64 input channels), ``ctas`` = output tiles x slabs, and the
+    slab count is :func:`_split`'s for ``resident`` CTAs on each of ``sms``
+    SMs (an H100's from _WGRAD_TILES unless given) within
+    ``_WGRAD_PARTIAL_BYTES``; one slab writes dK itself and needs no
+    partial (``partial_bytes`` 0). f32 (``bf16=False``, tile 0): 64 x 64
+    tiles over 32-position chunks, about ``_WGRAD_F32_CTAS`` CTAs within the
+    same cap, partials always."""
+    slab_bytes = 12 * channels * channels
+    if bf16:
+        _, tile, chunk, own = _wgrad_tile(channels)
+        resident = resident or own
+        tiles = 1 if tile <= 32 else -(-channels // 64) * -(-channels // tile)
+        chunks = batch * -(-length // chunk)
+        slabs, cps = _split(tiles, chunks, slab_bytes, _WGRAD_PARTIAL_BYTES,
+                            resident * sms)
+    else:
+        tile, chunk, resident = 0, 32, None
+        tiles = (-(-channels // 64)) ** 2
+        chunks = batch * -(-length // chunk)
+        want = max(1, min(chunks, -(-_WGRAD_F32_CTAS // tiles),
+                          _WGRAD_PARTIAL_BYTES // slab_bytes))
+        cps = -(-chunks // want)
+        slabs = -(-chunks // cps)
+    return dict(tile=tile, chunk=chunk, chunks=chunks, cps=cps, slabs=slabs,
+                ctas=tiles * slabs, resident=resident,
+                partial_bytes=(slab_bytes * slabs
+                               if slabs > 1 or not bf16 else 0))
 
 
 def _ptr(t: Optional[Tensor]):
     return t.data_ptr() if t is not None else None
+
+
+def _backward_scratch(batch: int, length: int, channels: int, groups: int,
+                      bf16: bool, sms: int = _SMS,
+                      resident: Optional[int] = None):
+    """The backward's plans and its one f32 scratch buffer: (the weight
+    gradient's plan, the bf16 data gradient's plan or None, offsets in
+    floats of dn, the GroupNorm backward's partials, column sums and group
+    means, the slab partials and the split-K partials, each on a 256-byte
+    boundary, and the buffer's size in floats). ``sms`` and ``resident``
+    are the device's, as :func:`wgrad_plan` takes them."""
+    _, n_tiles = _stats_tiles(length, channels)
+    wplan = wgrad_plan(batch, length, channels, sms, resident, bf16)
+    dplan = conv_plan(batch, length, channels, sms) if bf16 else None
+    sizes = dict(dn=batch * length * channels,
+                 red_partial=batch * n_tiles * channels * 3,
+                 col=batch * channels * 3, means=batch * groups * 2,
+                 wpartial=wplan["partial_bytes"] // 4,
+                 dgrad_ws=dplan["workspace_bytes"] // 4 if dplan else 0)
+    offsets, total = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = total
+        total += -(-n // 64) * 64
+    return wplan, dplan, offsets, total
 
 
 def _stats_tiles(length: int, channels: int):
@@ -281,28 +407,28 @@ class _FusedResnetItem(torch.autograd.Function):
                 f"{g.device} (16-byte aligned: {g.data_ptr() % 16 == 0}), "
                 f"x is {x.dtype} on {x.device}")
         b, length, c = x.shape
-        rows_per_tile, n_tiles = _stats_tiles(length, c)
-        per_slab, slabs = wgrad_slabs(b, length, c)
+        rows_per_tile, _ = _stats_tiles(length, c)
+        bf16, dev = x.dtype == torch.bfloat16, x.device.index
+        wplan, dplan, offsets, size = _backward_scratch(
+            b, length, c, groups, bf16, _sm_count(dev),
+            _wgrad_resident(dev, c) if bf16 else None)
         grads = [torch.empty_like(t) if t is not None else None
                  for t in (x, *params)]
         dy = torch.empty_like(x) if use_modulation else None
         dh = torch.empty_like(x)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dn = torch.empty(x.shape, **f32)
-        red_partial = torch.empty((b, n_tiles, c, 3), **f32)
-        col = torch.empty((b, c, 3), **f32)
-        means = torch.empty((b, groups, 2), **f32)
-        wpartial = torch.empty((slabs, 3, c, c), **f32)
+        scratch = torch.empty(size, dtype=torch.float32, device=x.device)
+        dgrad = ((dplan["bn"], dplan["mt"], dplan["bk"], dplan["splits"],
+                  dplan["cps"]) if dplan else (0, 0, 0, 1, 1))
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = _backward_kernel()(
                 _DTYPE_CODES[x.dtype], _ptr(g), _ptr(x), _ptr(h), _ptr(y),
                 _ptr(stats), _ptr(gn1s), _ptr(gn1b), _ptr(k1), _ptr(gn2s),
                 _ptr(gn2b), _ptr(k2), _ptr(mods), _ptr(mgs), _ptr(mgb),
-                *(_ptr(t) for t in grads), _ptr(dy), _ptr(dh), _ptr(dn),
-                _ptr(red_partial), _ptr(col), _ptr(means), _ptr(wpartial),
-                b, length, c, groups, rows_per_tile, per_slab, slabs, eps,
-                int(use_modulation), stream)
+                *(_ptr(t) for t in grads), _ptr(dy), _ptr(dh), _ptr(scratch),
+                *offsets.values(), b, length, c, groups, rows_per_tile,
+                wplan["tile"], wplan["chunk"], wplan["cps"], wplan["slabs"],
+                *dgrad, eps, int(use_modulation), stream)
         if err:
             raise RuntimeError(
                 f"fused_resnet_item backward: CUDA error {err} at launch")

@@ -18,7 +18,10 @@ forward row's ``launches`` counts the 50-step sample's and the backward
 row's the timed train steps' (42 per step), and ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per pass of the net at batch 1: each
 level's per-item bf16 device time times that level's items per pass (42 in
-all); ``host_ms`` is the host's time to enqueue the same calls.
+all); ``host_ms`` is the host's time to enqueue the same calls. The
+backward row's ``train_batch_ms``, ``train_batch_bound_ms`` and
+``train_batch_library_ms`` are the same sums at the train step's batch of
+8, and ``conv_sources`` names the headers of its two convolutions.
 Without a CUDA device it exits with code 1 and prints no result.
 
 Tolerances (kernel vs plain version, same inputs): float32 with TF32 off,
@@ -38,7 +41,10 @@ float32 ≤ 1e-4 (measured 3e-6), bfloat16 ≤ 2e-2 (measured 0.012: the kernels
 round the gradients passed between stages once, autograd wherever the
 forward casts). Timed at batch 1; held again in bf16 at the train step's
 batch of 8, with the output of the forward that keeps what the backward
-needs (≤ 2^-5·max|y|). At level 0 (8 channels, 8 groups) the second GroupNorm
+needs (≤ 2^-5·max|y|), and timed there too. A second bf16 backward on
+the same graph must give the same bits, at batch 1 and 8 (the weight
+gradient's slabs and the data gradient's split-K partials are summed in a
+fixed order). At level 0 (8 channels, 8 groups) the second GroupNorm
 removes conv 1's bias: its gradient is zero in exact arithmetic and
 rounding noise in both, and is compared on the scale of conv 2's bias
 gradient. The small net's train step, card vs CPU in float32: loss and
@@ -63,6 +69,7 @@ KERNEL_SOURCE = "audio_diffusion_torch/csrc/resnet_item.cu"
 CONV_SOURCE = "audio_diffusion_torch/csrc/conv3_sm90.cuh"
 REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:172"
 BACKWARD_SOURCE = "audio_diffusion_torch/csrc/resnet_item_bwd.cu"
+WGRAD_SOURCE = "audio_diffusion_torch/csrc/wgrad_sm90.cuh"
 BACKWARD_REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:193-219"
 GRAD_NAMES = ("x", "gn1s", "gn1b", "k1", "c1b", "gn2s", "gn2b", "k2", "c2b",
               "mods", "modb", "mgs", "mgb")
@@ -162,14 +169,31 @@ def gradient_errors(got, want, channels, tol, where):
     return worst_rel, worst_abs
 
 
-def item_at_train_batch(level, c, length, gen):
+def backward_bound(c, length, batch, dname):
+    """(bound_ms, bound_by, bytes, flops) of one item backward. The design
+    keeps h, y and the statistics, so no conv is run again: two data
+    gradients and two weight gradients. Bytes: g, x, h, y read and dx
+    written, the two kernels read and their gradients written, the vectors
+    and their gradients."""
+    esize = 2 if dname == "bfloat16" else 4
+    nbytes = (5 * batch * length * c + 12 * c * c + 22 * c) * esize
+    flops = 24 * c * c * length * batch
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
+
+
+def item_at_train_batch(level, c, length, gen, flush):
     """The item at the shape the train step gives it (batch TRAIN_BATCH,
     bf16), forward and backward through the kernels against the plain
     version under autograd: the output that the gradient-keeping forward
-    writes, and all 13 gradients. Correctness only."""
+    writes, all 13 gradients, a bit-identical second backward, the plans of
+    the backward's two convolutions, and the backward's device time beside
+    its bound and the library yardstick's."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
-        fused_resnet_item, resnet_item_reference)
+        backward_occupancy, fused_resnet_item, resnet_item_reference)
 
     dtype = torch.bfloat16
     args = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)
@@ -178,9 +202,13 @@ def item_at_train_batch(level, c, length, gen):
     for fn in (fused_resnet_item, resnet_item_reference):
         leaves = [t.clone().requires_grad_(True) for t in args]
         out = fn(*leaves, groups=GROUPS)
-        results.append((out.detach(), torch.autograd.grad(out, leaves, g)))
+        backward = (lambda out=out, leaves=leaves: torch.autograd.grad(
+            out, leaves, g, retain_graph=True))
+        results.append((out.detach(), backward(), backward))
+    kernel_bwd = results[0][2]
+    again = kernel_bwd()
     torch.cuda.synchronize()
-    (out, got), (ref, want) = results
+    (out, got, _), (ref, want, _) = results
     err = (out.float() - ref.float()).abs().max().item()
     bound = 2.0 ** -5 * ref.float().abs().max().item()
     if not (err <= bound):
@@ -188,11 +216,31 @@ def item_at_train_batch(level, c, length, gen):
                              f"with gradients kept, max-abs {err} > {bound}")
     rel, worst = gradient_errors(got, want, c, 2e-2,
                                  f"level {level} batch {TRAIN_BATCH} bfloat16")
-    emit(dict(phase="kernel_backward_vs_plain",
-              kernel="fused_resnet_item.backward", level=level, channels=c,
-              length=length, batch=TRAIN_BATCH, dtype="bfloat16",
-              forward_max_abs_err=err, forward_tolerance=bound,
-              max_rel_err=rel, tolerance=2e-2, max_abs_err=worst))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"level {level} batch {TRAIN_BATCH}: two bf16 "
+                             "backwards on the same graph differ")
+    del results, got, want, again
+    kernel_ms = cuda_ms(kernel_bwd, flush)
+    lib_args = list(args)
+    lib_args[0] = args[0].transpose(1, 2).contiguous()
+    lib_args[3] = args[3].permute(2, 1, 0).contiguous()
+    lib_args[7] = args[7].permute(2, 1, 0).contiguous()
+    library_ms = cuda_ms(backward_of(library_item, lib_args,
+                                     g.transpose(1, 2).contiguous()), flush)
+    bound_ms, bound_by, nbytes, flops = backward_bound(c, length, TRAIN_BATCH,
+                                                       "bfloat16")
+    row = dict(phase="kernel_backward_vs_plain",
+               kernel="fused_resnet_item.backward", level=level, channels=c,
+               length=length, batch=TRAIN_BATCH, dtype="bfloat16",
+               plans=backward_occupancy(c, length, TRAIN_BATCH),
+               bit_identical_rerun=True,
+               forward_max_abs_err=err, forward_tolerance=bound,
+               max_rel_err=rel, tolerance=2e-2, max_abs_err=worst,
+               kernel_ms=kernel_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, items_per_forward=2 * ITEMS[level])
+    emit(row)
+    return row
 
 
 def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb,
@@ -291,11 +339,14 @@ def phase_kernel_backward_vs_plain(flush):
     """Backward kernels vs autograd of the plain version at each level's item
     shape, bf16 and f32, batch 1: all 13 gradients, and the time of one item
     backward beside the plain version's, the library yardstick's and the
-    bound. Then each level at the train step's batch in bf16, forward and
-    backward, correctness only; the returned rows are the batch-1 ones."""
+    bound; a bf16 row also reports the plans of the backward's two
+    convolutions and checks that a second backward gives the same bits. Then
+    each level at the train step's batch in bf16, forward and backward, with
+    its time and bound. Returns the batch-1 rows and the batch-8 rows."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
-        fused_resnet_item, resnet_item_reference)
+        backward_occupancy, fused_resnet_item, resnet_item_reference,
+        wgrad_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -321,35 +372,45 @@ def phase_kernel_backward_vs_plain(flush):
             torch.cuda.synchronize()
             worst_rel, worst_abs = gradient_errors(
                 got, want, c, tol, f"level {level} {dname}")
+            extra = {}
+            if dtype == torch.bfloat16:
+                again = kernel_bwd()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"level {level} bf16: two backwards "
+                                         "on the same graph differ")
+                extra = dict(plans=backward_occupancy(c, length),
+                             bit_identical_rerun=True)
+                # The plan takes the card's residency from the occupancy
+                # API; the CPU's default must be the same.
+                resident = extra["plans"]["weight_gradient"]["resident"]
+                if resident != wgrad_plan(1, length, c)["resident"]:
+                    raise AssertionError(
+                        f"level {level}: the card holds {resident} weight-"
+                        "gradient CTAs per SM, wgrad_plan assumes "
+                        f"{wgrad_plan(1, length, c)['resident']}")
+                del again
             kernel_ms = cuda_ms(kernel_bwd, flush)
             kernel_host_ms = host_ms(kernel_bwd)
             plain_ms = cuda_ms(plain_bwd, flush)
             library_ms = cuda_ms(library_bwd, flush)
-            # The design keeps h, y and the statistics, so no conv is run
-            # again: two data gradients and two weight gradients. Bytes:
-            # g, x, h, y read and dx written, the two kernels read and their
-            # gradients written, the vectors and their gradients.
-            esize = args[0].element_size()
-            nbytes = (5 * length * c + 12 * c * c + 22 * c) * esize
-            flops = 24 * c * c * length
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            flops_ms = flops / PEAK_FLOPS[dname] * 1e3
+            bound_ms, bound_by, nbytes, flops = backward_bound(c, length, 1,
+                                                               dname)
             row = dict(phase="kernel_backward_vs_plain",
                        kernel="fused_resnet_item.backward", level=level,
                        channels=c, length=length, batch=1, dtype=dname,
-                       max_rel_err=worst_rel, tolerance=tol,
+                       **extra, max_rel_err=worst_rel, tolerance=tol,
                        max_abs_err=worst_abs, kernel_ms=kernel_ms,
                        kernel_host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=max(bytes_ms, flops_ms),
-                       bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                       bound_ms=bound_ms, bound_by=bound_by,
                        bytes=nbytes, flops=flops,
                        items_per_forward=2 * ITEMS[level])
             emit(row)
             rows.append(row)
             del kernel_bwd, plain_bwd, library_bwd, got, want
-    for level, (c, length) in enumerate(LEVELS):
-        item_at_train_batch(level, c, length, gen)
-    return rows
+    train_rows = [item_at_train_batch(level, c, length, gen, flush)
+                  for level, (c, length) in enumerate(LEVELS)]
+    return rows, train_rows
 
 
 def build_flagship(torch, seed: int = 0):
@@ -613,12 +674,12 @@ def main() -> int:
                        pool.submit(resnet._backward_kernel)]:
             future.result()
     emit(dict(phase="build", sources=[KERNEL_SOURCE, CONV_SOURCE,
-                                      BACKWARD_SOURCE],
+                                      BACKWARD_SOURCE, WGRAD_SOURCE],
               seconds=time.perf_counter() - t0))
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     rows = phase_kernel_vs_plain(flush)
-    bwd_rows = phase_kernel_backward_vs_plain(flush)
+    bwd_rows, bwd_train_rows = phase_kernel_backward_vs_plain(flush)
     del flush
     phase_small_reference()
     phase_train_small()
@@ -691,7 +752,16 @@ def main() -> int:
                 conv_source=CONV_SOURCE),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
-                launches_per_train_step=train_launches[1] // TRAIN_STEPS)]})
+                launches_per_train_step=train_launches[1] // TRAIN_STEPS,
+                conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
+                train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
+                                   for r in bwd_train_rows),
+                train_batch_library_ms=sum(
+                    r["library_ms"] * r["items_per_forward"]
+                    for r in bwd_train_rows),
+                train_batch_bound_ms=sum(
+                    r["bound_ms"] * r["items_per_forward"]
+                    for r in bwd_train_rows))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

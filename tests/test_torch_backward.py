@@ -24,7 +24,7 @@ from audio_diffusion_tpu.ops.kernels.resnet import (
     fused_resnet_item as jax_fused_resnet_item, group_map,
     resnet_item_reference as jax_resnet_item_reference)
 from audio_diffusion_torch.ops.kernels.resnet import (
-    fused_resnet_item, resnet_item_reference, wgrad_slabs)
+    fused_resnet_item, resnet_item_reference, wgrad_plan)
 
 torch.set_num_threads(2)
 
@@ -138,17 +138,22 @@ def test_wrapper_gradient_on_cpu_is_the_plain_versions():
                       fused_resnet_item.backward_launches)
 
 
+@pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("batch,length,channels", [
     (1, 2**18, 8), (8, 2**18, 8), (1, 2**12, 128), (8, 2**10, 512),
     (1, 2**7, 1024), (8, 2**8, 1024), (2, 77, 96), (1, 1, 8)])
 def test_wgrad_slabs_cover_every_chunk_within_the_partial_budget(
-        batch, length, channels):
-    """The weight-gradient kernel's split of its B·L inner dimension: every
-    32-position chunk lies in exactly one slab, no slab is empty, and the f32
+        batch, length, channels, bf16):
+    """The weight-gradient kernel's split of its B·L inner dimension
+    (wgrad_plan, bf16 and f32): every chunk of ``chunk`` positions of a
+    batch row lies in exactly one slab, no slab is empty, and the f32
     partials [slabs, 3, C, C] stay within 16 MiB unless one slab alone is
-    larger."""
-    per_slab, slabs = wgrad_slabs(batch, length, channels)
-    chunks = batch * -(-length // 32)
-    assert per_slab >= 1 and slabs >= 1
-    assert (slabs - 1) * per_slab < chunks <= slabs * per_slab
-    assert slabs == 1 or slabs * 12 * channels * channels <= 16 * 2**20
+    larger; a single bf16 slab writes dK itself and has none."""
+    p = wgrad_plan(batch, length, channels, bf16=bf16)
+    chunks = batch * -(-length // p["chunk"])
+    assert p["chunks"] == chunks
+    assert p["cps"] >= 1 and p["slabs"] >= 1
+    assert (p["slabs"] - 1) * p["cps"] < chunks <= p["slabs"] * p["cps"]
+    assert p["slabs"] == 1 or p["slabs"] * 12 * channels**2 <= 16 * 2**20
+    assert p["partial_bytes"] == (
+        0 if bf16 and p["slabs"] == 1 else p["slabs"] * 12 * channels**2)

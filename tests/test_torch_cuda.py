@@ -26,7 +26,7 @@ import torch
 from audio_diffusion_torch import DiffusionModel, UNetV0, make_train_step
 from audio_diffusion_torch.diffusion.vdiffusion import v_loss
 from audio_diffusion_torch.ops.kernels.resnet import (
-    conv_plan, fused_resnet_item, resnet_item_reference)
+    conv_plan, fused_resnet_item, resnet_item_reference, wgrad_plan)
 
 torch.set_num_threads(2)
 
@@ -136,6 +136,41 @@ def test_backward_kernel_matches_plain_autograd(cuda_device, dtype, channels,
             scale = want["c2b"].float().abs().max().item()
         err = (grad.float() - want[name].float()).abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,length,batch,dgrad_split,wgrad_tile", [
+    (1024, 128, 1, True, 128), (8, 2**14 + 3, 1, False, 8),
+    (32, 2**14 + 3, 1, False, 32), (64, 1000, 2, True, 64),
+    (128, 1000, 8, True, 128), (256, 2048, 8, False, 128)])
+def test_bf16_backward_plans_match_plain_autograd(
+        cuda_device, channels, length, batch, dgrad_split, wgrad_tile):
+    """The bf16 backward through each of its convolutions' paths: the data
+    gradient with split-K (level 8's shape, and ragged ones) and without
+    (level 4's shape at batch 8), the weight gradient's narrow tiles at
+    C = 8 and 32 with a ragged last chunk, its wgmma tiles over many slabs
+    and in one, at batch 1, 2 and 8; all 13 gradients against the plain
+    version's autograd at 2e-2 of each one's largest value, and a second
+    backward gives the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (conv_plan(batch, length, channels, sms)["splits"] > 1) \
+        == dgrad_split
+    assert wgrad_plan(batch, length, channels, sms)["tile"] == wgrad_tile
+    args = item_inputs(channels, length, batch, channels, torch.bfloat16,
+                       cuda_device)
+    g = item_inputs(channels, length, batch, channels + 1, torch.bfloat16,
+                    cuda_device)[0]
+    got = item_gradients(fused_resnet_item, args, g, True)
+    again = item_gradients(fused_resnet_item, args, g, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[k], again[k]) for k in NAMES)
+    want = item_gradients(resnet_item_reference, args, g, True)
+    for name, grad in got.items():
+        scale = want[name].float().abs().max().item()
+        if name == "c1b" and channels == GROUPS:
+            scale = want["c2b"].float().abs().max().item()
+        err = (grad.float() - want[name].float()).abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,8 @@ from audio_diffusion_tpu.ops.kernels.resnet import (
     fused_resnet_item as jax_fused_resnet_item, group_map,
     resnet_item_reference as jax_resnet_item_reference)
 from audio_diffusion_torch.ops.kernels.resnet import (
-    conv_plan, fused_resnet_item, resnet_item_reference)
+    _backward_scratch, conv_plan, fused_resnet_item, resnet_item_reference,
+    wgrad_plan)
 
 torch.set_num_threads(2)
 
@@ -151,3 +152,80 @@ def test_conv_plan_at_flagship_levels(channels, length, batch):
     if most >= wave:
         assert p["ctas"] >= 0.95 * wave
     assert p["ctas"] <= 2 * wave or p["splits"] == 1
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("channels,length", LEVELS)
+def test_wgrad_plan_at_flagship_levels(channels, length, batch):
+    """The bf16 weight gradient's tile and slabs (wgrad_plan) at the
+    flagship's nine level shapes: every chunk of positions is in exactly one
+    slab; the tile covers C (the narrow tile is exactly C wide at C = 8 and
+    32, the wgmma tiles 64 input channels by 64 or 128 output ones, the
+    latter over 128-position chunks); the f32 partials stay within 16 MiB;
+    and no slab count within that cap takes fewer chunk-times, a CTA's
+    chunks times the waves its grid needs of the CTAs an H100 holds (five
+    per SM of the C = 8 tile, as the occupancy API reports, two of the
+    C = 32 and 64 tiles, one of the 64 x 128 tile), so that a grid never
+    spills a few CTAs into a second wave (at level 1, batch 8: 256 slabs of
+    32 chunks, not 265 of 31)."""
+    p = wgrad_plan(batch, length, channels)
+    chunks = batch * -(-length // p["chunk"])
+    assert p["chunks"] == chunks
+    covered = [q for z in range(p["slabs"])
+               for q in range(z * p["cps"], min((z + 1) * p["cps"], chunks))]
+    assert covered == list(range(chunks))
+    assert (p["slabs"] - 1) * p["cps"] < chunks
+    if channels <= 32:
+        assert p["tile"] == channels and p["chunk"] == (256 if channels == 8
+                                                        else 64)
+        tiles = 1
+    else:
+        assert p["tile"] in (64, 128)
+        assert p["chunk"] == (128 if p["tile"] == 128 else 64)
+        assert p["tile"] >= channels or channels % p["tile"] == 0
+        tiles = -(-channels // 64) * -(-channels // p["tile"])
+    assert p["resident"] == {8: 5, 32: 2, 64: 2, 128: 1}[p["tile"]]
+    assert p["ctas"] == tiles * p["slabs"]
+    slab_bytes = 12 * channels * channels
+    assert p["partial_bytes"] == (slab_bytes * p["slabs"]
+                                  if p["slabs"] > 1 else 0)
+    assert p["partial_bytes"] <= 16 * 2**20
+    wave = 132 * p["resident"]
+
+    def chunk_times(slabs):
+        return -(-tiles * slabs // wave) * -(-chunks // slabs)
+
+    fits = [n for n in range(1, chunks + 1)
+            if n == 1 or n * slab_bytes <= 16 * 2**20]
+    assert chunk_times(p["slabs"]) == min(map(chunk_times, fits))
+    if (channels, batch) == (32, 8):
+        assert (p["slabs"], p["cps"]) == (256, 32)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("channels,length", LEVELS)
+def test_backward_scratch_at_flagship_levels(channels, length, batch):
+    """The bf16 backward's one f32 scratch buffer at the nine level shapes,
+    at batch 1 and the train step's batch 8: its regions (dn, the GroupNorm
+    backward's partials, column sums and means, the weight gradient's slab
+    partials, the data gradient's split-K partials) are disjoint, each on a
+    256-byte boundary and as large as its kernel writes; the data
+    gradient's plan is the forward conv's, and its split-K partials stay
+    within conv_plan's 16 MiB cap."""
+    wplan, dplan, offsets, size = _backward_scratch(batch, length, channels,
+                                                    8, bf16=True)
+    assert dplan == conv_plan(batch, length, channels)
+    assert dplan["workspace_bytes"] <= 16 * 2**20
+    n_tiles = -(-length // max(1, 8192 // channels))
+    need = dict(dn=batch * length * channels,
+                red_partial=batch * n_tiles * channels * 3,
+                col=batch * channels * 3, means=batch * 8 * 2,
+                wpartial=(wplan["slabs"] * 3 * channels**2
+                          if wplan["slabs"] > 1 else 0),
+                dgrad_ws=(dplan["splits"] * batch * length * channels
+                          if dplan["splits"] > 1 else 0))
+    assert list(offsets) == list(need)
+    spans = sorted((offsets[k], offsets[k] + need[k]) for k in need)
+    assert all(o % 64 == 0 for o in offsets.values())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= size
