@@ -2,13 +2,16 @@
 NVIDIA Hopper (H100). Ported so far: the unconditional sampling path
 (``DiffusionModel`` + ``UNetV0`` at dim=1 + ``VSampler``) and the one-device
 training path (``VDiffusion`` loss, ``make_train_step``), with the fused
-resnet item's forward and backward as hand-written CUDA kernels, and
-``params_from_jax`` to carry weights across from the JAX package.
+resnet item's forward and backward as hand-written CUDA kernels; the
+text-conditional net (cross-attention, context injection, classifier-free
+guidance, ``text=`` through ``ops.text.StubTextEncoder``) and encoder reuse
+in ``VSampler``; and ``params_from_jax`` / ``params_to_jax`` to carry
+weights between the two packages.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import presets
-from .convert import params_from_jax
+from .convert import params_from_jax, params_to_jax
 from .diffusion import (Diffusion, Distribution, LinearSchedule, Sampler,
                         Schedule, UniformDistribution, UniformLambdaSchedule,
                         VDiffusion, VSampler, mse_loss)
@@ -21,6 +24,7 @@ __version__ = "0.1.0"
 __all__ = [
     "presets",
     "params_from_jax",
+    "params_to_jax",
     "DiffusionModel",
     "Net",
     "UNetV0",

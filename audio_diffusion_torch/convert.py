@@ -1,14 +1,20 @@
-"""Weights carried across from the JAX package.
+"""Weights carried between the JAX package and the port.
 
 ``params_from_jax(tree)`` takes the JAX ``UNetV0`` parameter tree as nested
-dicts of arrays (``{"inner": {xunet...}, "sigma_embedding": {...}}``, or the
-bare XUNet tree of a net without time conditioning) and returns the port's
-``state_dict``, which ``net.module.load_state_dict(strict=True)`` accepts.
+dicts of arrays and returns the port's ``state_dict``, which
+``net.module.load_state_dict(strict=True)`` accepts. ``params_to_jax(state)``
+is its inverse: the nested dict of float32 numpy arrays that the JAX
+``UNetV0`` takes. The tree is, from the outside in, time conditioning
+(``{"inner": ..., "sigma_embedding": ...}``), classifier-free guidance
+(``{"inner": {xunet...}, "fixed_embedding": ...}``) and the XUNet; a net
+without one of the wrappers lacks that level.
 
 Layouts: a flax Dense kernel [in, out] becomes an ``nn.Linear`` weight
 [out, in]; LayerNorm keeps ``scale``/``bias``; conv3 kernels [3, Cin, Cout],
 Downsample [d·Cin, Cout], Upsample [Cin, d·Cout] and SkipCat [2C, C] kernels
-keep their layout. Every leaf must be consumed: a leftover raises.
+and ``fixed_embedding`` keep their layout. Port names are the JAX paths
+joined by dots, with a Dense's ``kernel`` named ``weight``. Both directions
+are strict: a leftover or a missing leaf raises.
 """
 from __future__ import annotations
 
@@ -19,33 +25,44 @@ import numpy as np
 import torch
 from torch import Tensor
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax"]
 
 _RESNET_LEAVES = ("gn1_scale", "gn1_bias", "conv1_kernel", "conv1_bias",
                   "gn2_scale", "gn2_bias", "conv2_kernel", "conv2_bias")
+_ITEM = re.compile(r"(ResnetMod|InjectChannels|Attention|CrossAttention)"
+                   r"Item_\d+")
 
 
 class _Walk:
-    """Pops leaves off a copy of the tree into a flat state dict."""
+    """Pops leaves off a copy of the JAX tree into a flat dict of port names
+    -> (array, is a Dense kernel)."""
 
-    def __init__(self):
-        self.out: Dict[str, Tensor] = {}
+    def __init__(self, caller: str):
+        self.caller = caller
+        self.out: Dict[str, tuple] = {}
+
+    def take(self, node: dict, key: str, where: str):
+        if key not in node:
+            raise ValueError(f"{self.caller}: missing leaf {key!r} under "
+                             f"{where or '<root>'}")
+        return node.pop(key)
 
     def leaf(self, node: dict, key: str, prefix: str):
-        self.out[prefix + key] = torch.from_numpy(
-            np.array(node.pop(key), dtype=np.float32))
+        self.out[prefix + key] = (self.take(node, key, prefix), False)
 
     def done(self, node: dict, where: str) -> None:
         if node:
-            raise ValueError(f"params_from_jax: unconsumed leaves under "
+            raise ValueError(f"{self.caller}: unconsumed leaves under "
                              f"{where or '<root>'}: {sorted(node)}")
 
     def dense(self, node: dict, prefix: str) -> None:
-        kernel = np.array(node.pop("kernel"), dtype=np.float32)
-        self.out[prefix + "weight"] = torch.from_numpy(kernel.T.copy())
+        self.out[prefix + "weight"] = (self.take(node, "kernel", prefix), True)
         if "bias" in node:
             self.leaf(node, "bias", prefix)
         self.done(node, prefix)
+
+    def child(self, node: dict, key: str, prefix: str, fn) -> None:
+        fn(self.take(node, key, prefix), f"{prefix}{key}.")
 
     def layer_norm(self, node: dict, prefix: str) -> None:
         self.leaf(node, "scale", prefix)
@@ -58,20 +75,37 @@ class _Walk:
         if "mod_dense" in node:
             self.leaf(node, "mod_gn_scale", prefix)
             self.leaf(node, "mod_gn_bias", prefix)
-            self.dense(node.pop("mod_dense"), prefix + "mod_dense.")
+            self.child(node, "mod_dense", prefix, self.dense)
+        self.done(node, prefix)
+
+    def inject_item(self, node: dict, prefix: str) -> None:
+        self.child(node, "Dense_0", prefix, self.dense)
         self.done(node, prefix)
 
     def attention_item(self, node: dict, prefix: str) -> None:
-        self.layer_norm(node.pop("LayerNorm_0"), prefix + "LayerNorm_0.")
-        self.layer_norm(node.pop("LayerNorm_1"), prefix + "LayerNorm_1.")
-        attn = node.pop("Attention_0")
-        for key in ("to_qkv", "to_out"):
-            self.dense(attn.pop(key), f"{prefix}Attention_0.{key}.")
-        self.done(attn, prefix + "Attention_0.")
-        ff = node.pop("FeedForward_0")
+        self.child(node, "LayerNorm_0", prefix, self.layer_norm)
+        self.child(node, "LayerNorm_1", prefix, self.layer_norm)
+        attn = self.take(node, "Attention_0", prefix)
+        where = prefix + "Attention_0."
+        # Self-attention projects with to_qkv, cross-attention with
+        # to_q/to_k/to_v; both end in to_out.
+        keys = ("to_qkv",) if "to_qkv" in attn else ("to_q", "to_k", "to_v")
+        for key in keys + ("to_out",):
+            self.child(attn, key, where, self.dense)
+        self.done(attn, where)
+        ff = self.take(node, "FeedForward_0", prefix)
         for key in ("Dense_0", "Dense_1"):
-            self.dense(ff.pop(key), f"{prefix}FeedForward_0.{key}.")
+            self.child(ff, key, prefix + "FeedForward_0.", self.dense)
         self.done(ff, prefix + "FeedForward_0.")
+        self.done(node, prefix)
+
+    def item_stack(self, node: dict, prefix: str) -> None:
+        for item in [k for k in node if _ITEM.fullmatch(k)]:
+            kind = _ITEM.fullmatch(item).group(1)
+            fn = {"ResnetMod": self.resnet_item,
+                  "InjectChannels": self.inject_item}.get(
+                      kind, self.attention_item)
+            self.child(node, item, prefix, fn)
         self.done(node, prefix)
 
     def xunet(self, node: dict, prefix: str) -> None:
@@ -85,21 +119,35 @@ class _Walk:
         for key in [k for k in node if re.fullmatch(r"skip_\d+", k)]:
             sub = node.pop(key)
             if "Dense_0" in sub:  # SkipModulate's gate
-                self.dense(sub.pop("Dense_0"), f"{prefix}{key}.Dense_0.")
+                self.child(sub, "Dense_0", f"{prefix}{key}.", self.dense)
             else:  # SkipCat
                 self.leaf(sub, "kernel", f"{prefix}{key}.")
                 self.leaf(sub, "bias", f"{prefix}{key}.")
             self.done(sub, f"{prefix}{key}.")
         for key in [k for k in node if re.fullmatch(r"items_(down|up)_\d+", k)]:
-            stack = node.pop(key)
-            for item in list(stack):
-                if re.fullmatch(r"ResnetModItem_\d+", item):
-                    self.resnet_item(stack.pop(item), f"{prefix}{key}.{item}.")
-                elif re.fullmatch(r"AttentionItem_\d+", item):
-                    self.attention_item(stack.pop(item),
-                                        f"{prefix}{key}.{item}.")
-            self.done(stack, f"{prefix}{key}.")
+            self.child(node, key, prefix, self.item_stack)
         self.done(node, prefix)
+
+    def guided(self, node: dict, prefix: str) -> None:
+        """The XUNet, or the CFG wrapper around it."""
+        if "fixed_embedding" in node:
+            self.leaf(node, "fixed_embedding", prefix)
+            self.child(node, "inner", prefix, self.xunet)
+            self.done(node, prefix)
+        else:
+            self.xunet(node, prefix)
+
+    def net(self, tree: dict) -> None:
+        if "sigma_embedding" in tree:
+            se = tree.pop("sigma_embedding")
+            self.leaf(se, "freqs", "sigma_embedding.")
+            self.child(se, "Dense_0", "sigma_embedding.", self.dense)
+            self.child(se, "Dense_1", "sigma_embedding.", self.dense)
+            self.done(se, "sigma_embedding.")
+            self.child(tree, "inner", "", self.guided)
+            self.done(tree, "")
+        else:
+            self.guided(tree, "")
 
 
 def _plain(tree) -> dict:
@@ -109,19 +157,38 @@ def _plain(tree) -> dict:
     return tree
 
 
+def _layout(tree: Mapping, caller: str) -> Dict[str, tuple]:
+    walk = _Walk(caller)
+    walk.net(_plain(tree))
+    return walk.out
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, Tensor]:
     """JAX ``UNetV0`` parameter tree -> the port's state_dict (f32 CPU
     tensors)."""
-    tree = _plain(tree)
-    walk = _Walk()
-    if "sigma_embedding" in tree:
-        se = tree.pop("sigma_embedding")
-        walk.leaf(se, "freqs", "sigma_embedding.")
-        walk.dense(se.pop("Dense_0"), "sigma_embedding.Dense_0.")
-        walk.dense(se.pop("Dense_1"), "sigma_embedding.Dense_1.")
-        walk.done(se, "sigma_embedding.")
-        walk.xunet(tree.pop("inner"), "inner.")
-        walk.done(tree, "")
-    else:
-        walk.xunet(tree, "")
-    return walk.out
+    out = {}
+    for name, (a, is_dense) in _layout(tree, "params_from_jax").items():
+        a = np.array(a, dtype=np.float32)
+        out[name] = torch.from_numpy(a.T.copy() if is_dense else a)
+    return out
+
+
+def params_to_jax(state: Mapping[str, Tensor]) -> dict:
+    """The port's state_dict (or ``model.params``) -> the JAX ``UNetV0``
+    parameter tree, as nested dicts of float32 numpy arrays."""
+    tree: dict = {}
+    for name, t in state.items():
+        *path, key = name.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if key == "weight":  # an nn.Linear: the flax kernel is [in, out]
+            key, a = "kernel", a.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.array(a, dtype=np.float32)
+    # The tree must be one that params_from_jax reads back name for name.
+    names = set(_layout(tree, "params_to_jax"))
+    if names != set(state):
+        raise ValueError(f"params_to_jax: {sorted(set(state) ^ names)} "
+                         "do not map onto the JAX tree")
+    return tree

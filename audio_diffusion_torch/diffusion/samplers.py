@@ -44,11 +44,21 @@ class VSampler(Sampler):
         self.schedule = schedule or LinearSchedule()
 
     def sample(self, params: Dict[str, Tensor], x_noisy: Tensor,
-               num_steps: int, show_progress: bool = False,
+               num_steps: int, show_progress: bool = False, unroll: int = 1,
                encoder_reuse: int = 1, **kwargs) -> Tensor:
-        if encoder_reuse > 1:
-            raise NotImplementedError(
-                "encoder_reuse > 1 is not ported yet (ROADMAP: encoder reuse)")
+        """``unroll`` is the JAX sampler's scan unrolling, accepted and
+        ignored: a Python loop has no scan to unroll.
+
+        ``encoder_reuse=k`` (k > 1) runs the net's down path (encoder) only
+        on the first step of each chunk of k steps (``return_hidden=True``)
+        and decodes the k − 1 steps after it from that encoder state with
+        the current σ (``hidden=``). Approximate; k = 1 is the exact
+        sampler. ``num_steps`` must be a multiple of k."""
+        k = int(encoder_reuse)
+        if k > 1 and num_steps % k:
+            raise ValueError(
+                f"num_steps ({num_steps}) must be divisible by encoder_reuse "
+                f"({k}): the encoder runs once per chunk of k steps")
         b = x_noisy.shape[0]
         params = cast_inference_params(params, self.net.compute_dtype)
         # σ/α/β stay f32 under a bf16 carry; only the carry is in x's dtype.
@@ -60,7 +70,13 @@ class VSampler(Sampler):
             x = x_noisy
             for i in range(num_steps):
                 # The net sees σ in the carry dtype.
-                v = net(x, sigmas[i].expand(b).to(x.dtype), **kwargs)
+                sig = sigmas[i].expand(b).to(x.dtype)
+                if k <= 1:
+                    v = net(x, sig, **kwargs)
+                elif i % k == 0:
+                    v, enc = net(x, sig, return_hidden=True, **kwargs)
+                else:
+                    v = net(x, sig, hidden=enc, **kwargs)
                 xf, vf = x.float(), v.float()
                 x_pred = alphas[i] * xf - betas[i] * vf
                 noise_pred = betas[i] * xf + alphas[i] * vf

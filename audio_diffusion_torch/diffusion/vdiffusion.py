@@ -28,7 +28,9 @@ def v_loss(net: Net, params, x: Tensor, sigmas: Tensor, noise: Tensor,
            loss_fn: Callable[[Tensor, Tensor], Tensor] = mse_loss,
            **kwargs) -> Tensor:
     """The v-objective at given σ [B] and noise (shaped like x): the net sees
-    x_noisy = α·x + β·noise and σ, and is held to v = α·noise − β·x."""
+    x_noisy = α·x + β·noise and σ, and is held to v = α·noise − β·x.
+    ``kwargs`` reach the net (a ``generator=`` among them feeds CFG's
+    embedding dropout)."""
     sigmas_batch = extend_dim(sigmas, dim=x.ndim).to(x.dtype)
     alphas, betas = alpha_beta(sigmas_batch)
     x_noisy = alphas * x + betas * noise
@@ -65,9 +67,10 @@ class VDiffusion(Diffusion):
     def loss(self, params: Dict[str, Tensor], generator: torch.Generator,
              x: Tensor, **kwargs) -> Tensor:
         """σ, then the noise, are drawn from ``generator``, which lives on
-        x's device."""
+        x's device; the net draws what it needs after them (CFG's embedding
+        mask, one Bernoulli per batch row)."""
         sigmas = self.sigma_distribution(generator, x.shape[0])
         noise = torch.randn(x.shape, generator=generator, device=x.device,
                             dtype=x.dtype)
         return v_loss(self.net, params, x, sigmas, noise, self.loss_fn,
-                      **kwargs)
+                      generator=generator, **kwargs)

@@ -8,6 +8,9 @@ Flat kwargs are routed by prefix (``diffusion_*`` -> diffusion, ``sampler_*``
 ``device="cpu"`` is passed) and is initialized from ``seed`` at construction.
 ``model.loss(params, generator, x)`` is the loss as a function of a
 parameter dict, for ``parallel.make_train_step`` and custom loops.
+``text=[...]`` is encoded on the host once per ``model(...)`` or
+``model.sample(...)`` call into ``embedding=`` by the net's text encoder;
+``loss`` takes a pre-encoded ``embedding=``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,22 @@ class DiffusionModel:
         self.sampler = sampler_t(net=self.net, **sampler_kwargs)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.net.init(self.generator)
+
+    def _process_cond(self, kwargs: Dict) -> Dict:
+        """``text=`` -> ``embedding=`` (on the model's device), through the
+        net's text encoder."""
+        if "text" in kwargs:
+            text = kwargs.pop("text")
+            encoder = self.net.text_encoder
+            if encoder is None:
+                raise ValueError(
+                    "text= requires a net built with use_text_conditioning="
+                    "True and a text_encoder (or pass embedding= directly)")
+            if "embedding" in kwargs:
+                raise ValueError("pass either text= or embedding=, not both")
+            kwargs["embedding"] = torch.as_tensor(encoder(list(text)),
+                                                  device=self.device)
+        return kwargs
 
     @property
     def params(self) -> Dict[str, Tensor]:
@@ -81,7 +100,7 @@ class DiffusionModel:
         on the live parameters; ``loss.backward()`` fills their ``.grad``."""
         x = torch.as_tensor(x, device=self.device)
         return self.loss(self.params, default(generator, self.generator), x,
-                         **kwargs)
+                         **self._process_cond(kwargs))
 
     def sample(self, x_noisy, *args, params: Optional[Dict[str, Tensor]] = None,
                **kwargs) -> Tensor:
@@ -91,4 +110,4 @@ class DiffusionModel:
         with torch.inference_mode():
             x_noisy = torch.as_tensor(x_noisy, device=self.device)
             return self.sampler.sample(default(params, self.params), x_noisy,
-                                       *args, **kwargs)
+                                       *args, **self._process_cond(kwargs))

@@ -1,4 +1,6 @@
+from .attention import Attention, AttentionItem, CrossAttentionItem, FeedForward
 from .components import UNetV0, XUNet
 from .net import Net, cast_inference_params
 
-__all__ = ["UNetV0", "XUNet", "Net", "cast_inference_params"]
+__all__ = ["UNetV0", "XUNet", "Net", "cast_inference_params", "Attention",
+           "AttentionItem", "CrossAttentionItem", "FeedForward"]

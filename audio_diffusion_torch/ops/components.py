@@ -8,7 +8,8 @@ import torch
 
 from ..utils import default, resolve_device
 from .net import Net
-from .unet import TimeConditioningWrapper, XUNet
+from .unet import (ClassifierFreeGuidanceWrapper, TimeConditioningWrapper,
+                   XUNet)
 
 __all__ = ["UNetV0", "XUNet"]
 
@@ -44,14 +45,19 @@ def UNetV0(
     device=None,
 ) -> Net:
     """Declarative U-Net factory; returns a :class:`Net` whose module lives
-    on ``device`` (``None`` means the CUDA card).
+    on ``device`` (``None`` means the CUDA card). The module is the XUNet,
+    wrapped in classifier-free guidance (``use_embedding_cfg``), wrapped in
+    time conditioning, as in the JAX package. With
+    ``use_text_conditioning`` the ``text_encoder`` (for example
+    ``ops.text.StubTextEncoder``) is attached as ``net.text_encoder``, and
+    the model layer turns ``text=`` into ``embedding=`` with it.
 
     ``lane_fold`` and ``use_pallas`` are the JAX package's TPU switches: they
     are accepted and ignored (the port never folds lanes, and every resnet
     item runs the fused kernels, forward and backward, on a CUDA tensor). Not
-    ported yet, and raising ``NotImplementedError``: dim 2/3, cross-attention,
-    context injection, CFG, text conditioning, remat (activation
-    checkpointing) and ``channel_change="first_item"``.
+    ported yet, and raising ``NotImplementedError``: dim 2/3, the pretrained
+    T5 encoder (``use_text_conditioning`` without a ``text_encoder``), remat
+    (activation checkpointing) and ``channel_change="first_item"``.
     """
     if dim != 1:
         raise NotImplementedError(
@@ -66,12 +72,13 @@ def UNetV0(
         raise ValueError(
             "channels/factors/items/attentions/cross_attentions/"
             "context_channels must all have the same length")
+    if use_text_conditioning and text_encoder is None:
+        raise NotImplementedError(
+            "UNetV0 use_text_conditioning without text_encoder= needs the "
+            "T5 text encoder, which is not ported yet (ROADMAP: Queue 1 "
+            "item 16, the T5 encoder stack); pass a text_encoder such as "
+            "ops.text.StubTextEncoder, or condition with embedding=")
     unported = {
-        "use_embedding_cfg": (use_embedding_cfg, "conditioning"),
-        "use_text_conditioning": (use_text_conditioning or
-                                  text_encoder is not None, "conditioning"),
-        "cross_attentions": (any(cross_attentions), "conditioning"),
-        "context_channels": (any(context_channels), "conditioning"),
         "use_remat": (use_remat or remat_policy is not None,
                       "trainer and data"),
         "channel_change": (channel_change != "resample", "parity geometry"),
@@ -82,6 +89,10 @@ def UNetV0(
                 f"UNetV0 {name} is not ported yet (ROADMAP: {item})")
     if use_time_conditioning and not use_modulation:
         raise ValueError("use_time_conditioning requires use_modulation=True")
+    if use_embedding_cfg and (embedding_max_length is None
+                              or embedding_features is None):
+        raise ValueError("use_embedding_cfg requires embedding_max_length "
+                         "and embedding_features")
 
     device = resolve_device(device)
     out_channels = default(out_channels, in_channels)
@@ -90,11 +101,20 @@ def UNetV0(
         in_channels=in_channels, out_channels=out_channels,
         channels=tuple(channels), factors=tuple(factors), items=tuple(items),
         attentions=tuple(attentions),
+        cross_attentions=tuple(cross_attentions),
+        context_channels=tuple(context_channels),
+        embedding_features=embedding_features,
         attention_heads=default(attention_heads, 8),
         attention_features=default(attention_features, 64),
         resnet_groups=resnet_groups, use_modulation=use_modulation,
         modulation_features=modulation_features, **common)
+    if use_embedding_cfg:
+        module = ClassifierFreeGuidanceWrapper(
+            module, embedding_max_length, embedding_features, **common)
     if use_time_conditioning:
         module = TimeConditioningWrapper(module, modulation_features, **common)
-    return Net(module, in_channels=in_channels, out_channels=out_channels,
-               uses_sigma=use_time_conditioning, compute_dtype=dtype)
+    net = Net(module, in_channels=in_channels, out_channels=out_channels,
+              uses_sigma=use_time_conditioning, compute_dtype=dtype)
+    if use_text_conditioning:
+        net.text_encoder = text_encoder
+    return net

@@ -6,7 +6,9 @@
 ``params_or_module`` is either an ``nn.Module`` (called as it is) or a dict
 of parameter tensors keyed like ``net.module.state_dict()``, which is applied
 with ``torch.func.functional_call`` without touching the module's own
-parameters.
+parameters. ``cond`` may hold ``generator=``, the random stream of
+stochastic conditioning (CFG's embedding dropout), which the loss passes as
+the JAX loss passes a key.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from torch.func import functional_call
 __all__ = ["Net", "cast_inference_params"]
 
 # Parameters that stay float32 under a bf16 compute dtype: SigmaEmbedding's
-# fourier `freqs` feed large angles to sin/cos.
+# fourier `freqs` feed large angles to sin/cos. Every other float32
+# parameter is cast, CFG's `fixed_embedding` included.
 _KEEP_F32 = ("freqs",)
 
 
@@ -56,6 +59,9 @@ class Net:
         # The net's compute dtype; samplers pre-cast f32 params to it.
         self.compute_dtype = compute_dtype
         self.uses_sigma = uses_sigma
+        # Host-side text encoder, set by UNetV0 with use_text_conditioning;
+        # the model layer turns text= into embedding= with it.
+        self.text_encoder = None
 
     def params(self) -> Dict[str, Tensor]:
         """The module's live parameters, by state_dict name."""

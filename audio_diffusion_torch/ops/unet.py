@@ -11,7 +11,8 @@ Every ``ResnetModItem`` runs the fused resnet item
 CUDA tensor, its plain version on a CPU tensor. Parameters are float32
 masters cast to the compute dtype at each use, so gradients arrive in
 float32. Parameter names follow the JAX parameter tree, so
-``convert.params_from_jax`` is a renaming plus the Dense transposes.
+``convert.params_from_jax`` and ``params_to_jax`` are a renaming plus the
+Dense transposes.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
-from .attention import AttentionItem
+from .attention import AttentionItem, CrossAttentionItem
 from .kernels import resnet as resnet_kernel
 from .layers import Dense, lecun_normal_, new_param
 
@@ -34,10 +35,12 @@ __all__ = [
     "Upsample",
     "SkipCat",
     "SkipModulate",
+    "InjectChannelsItem",
     "ItemStack",
     "XUNet",
     "SigmaEmbedding",
     "TimeConditioningWrapper",
+    "ClassifierFreeGuidanceWrapper",
 ]
 
 
@@ -70,7 +73,11 @@ def conv3(x: Tensor, kernel: Tensor, bias: Tensor) -> Tensor:
 
 def _check_unused_kwargs(unused: dict) -> None:
     """CFG knobs reaching a net without guidance are a hard error (guidance
-    would be silently skipped); other unknown kwargs warn."""
+    would be silently skipped), and so are the encoder-reuse kwargs reaching
+    a net without the hooks (its output would be mis-unpacked as (v, enc));
+    other unknown kwargs warn. ``generator`` (the loss's random stream) is
+    consumed only by stochastic conditioning and is otherwise ignored, as
+    the JAX net ignores an unused ``key``."""
     cfg_keys = {"embedding_scale", "embedding_mask_proba"}
     bad = cfg_keys & unused.keys()
     if bad:
@@ -78,6 +85,12 @@ def _check_unused_kwargs(unused: dict) -> None:
             f"{sorted(bad)} requires a net built with use_embedding_cfg=True; "
             "this net has no CFG plugin, so guidance would be silently "
             "skipped")
+    reuse = {"hidden", "return_hidden"} & unused.keys()
+    if reuse:
+        raise TypeError(
+            f"{sorted(reuse)}: this net does not implement encoder reuse; "
+            "drop encoder_reuse from the sampler call")
+    unused = set(unused) - {"generator"}
     if unused:
         warnings.warn(
             f"conditioning kwargs {sorted(unused)} are not consumed by this "
@@ -219,31 +232,80 @@ class SkipModulate(nn.Module):
         return x + skip.to(x.dtype) * (1.0 + gate)
 
 
+class InjectChannelsItem(nn.Module):
+    """Context injection: x + Dense(cat([x, ctx])), the context
+    [B, context_channels, L_d] taken channels-last at this depth's length."""
+
+    def __init__(self, channels: int, context_channels: int, dtype=None,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.Dense_0 = Dense(channels + context_channels, channels,
+                             dtype=dtype, param_dtype=param_dtype,
+                             device=device)
+
+    def forward(self, x: Tensor, context: Tensor) -> Tensor:
+        ctx = context.transpose(1, 2).to(x.dtype)
+        if ctx.shape[1] != x.shape[1]:
+            raise ValueError(f"context length {ctx.shape[1]} != feature "
+                             f"length {x.shape[1]} at this depth")
+        return x + self.Dense_0(torch.cat([x, ctx], dim=-1))
+
+
 class ItemStack(nn.Module):
-    """One level's repeated item sequence: ([Resnet+Mod][Attn]·a) × items."""
+    """One level's repeated item sequence:
+    ([Resnet+Mod][Inject if context][Attn]·a[CrossAttn]·c) × items. Module
+    names follow flax's per-class counters."""
 
     def __init__(self, channels: int, items: int, attentions: int,
                  use_modulation: bool, resnet_groups: int,
                  attention_heads: int, attention_features: int,
-                 modulation_features: Optional[int], dtype=None,
+                 modulation_features: Optional[int],
+                 cross_attentions: int = 0, context_channels: int = 0,
+                 embedding_features: Optional[int] = None, dtype=None,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        self.items, self.attentions = items, attentions
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.layout = []
         for it in range(items):
-            self.add_module(f"ResnetModItem_{it}", ResnetModItem(
+            resnet = f"ResnetModItem_{it}"
+            self.add_module(resnet, ResnetModItem(
                 channels, resnet_groups, use_modulation, modulation_features,
                 **common))
-            for a in range(attentions):
-                self.add_module(f"AttentionItem_{it * attentions + a}",
-                                AttentionItem(channels, attention_heads,
-                                              attention_features, **common))
+            inject = f"InjectChannelsItem_{it}" if context_channels else None
+            if inject:
+                self.add_module(inject, InjectChannelsItem(
+                    channels, context_channels, **common))
+            attns = [f"AttentionItem_{it * attentions + a}"
+                     for a in range(attentions)]
+            for name in attns:
+                self.add_module(name, AttentionItem(
+                    channels, attention_heads, attention_features, **common))
+            crosses = [f"CrossAttentionItem_{it * cross_attentions + a}"
+                       for a in range(cross_attentions)]
+            for name in crosses:
+                self.add_module(name, CrossAttentionItem(
+                    channels, embedding_features, attention_heads,
+                    attention_features, **common))
+            self.layout.append((resnet, inject, attns, crosses))
 
-    def forward(self, x: Tensor, features: Optional[Tensor]) -> Tensor:
-        for it in range(self.items):
-            x = getattr(self, f"ResnetModItem_{it}")(x, features)
-            for a in range(self.attentions):
-                x = getattr(self, f"AttentionItem_{it * self.attentions + a}")(x)
+    def forward(self, x: Tensor, features: Optional[Tensor],
+                embedding: Optional[Tensor] = None,
+                context: Optional[Tensor] = None) -> Tensor:
+        for resnet, inject, attns, crosses in self.layout:
+            x = getattr(self, resnet)(x, features)
+            if inject:
+                if context is None:
+                    raise ValueError(
+                        "this depth was built with context_channels > 0; "
+                        "pass channels=[...] with a tensor at this depth")
+                x = getattr(self, inject)(x, context)
+            for name in attns:
+                x = getattr(self, name)(x)
+            if crosses and embedding is None:
+                raise ValueError("cross attention requires embedding= (or "
+                                 "text= at the model layer)")
+            for name in crosses:
+                x = getattr(self, name)(x, embedding)
         return x
 
 
@@ -252,16 +314,27 @@ class XUNet(nn.Module):
       down:  Downsample(factor_i, -> channels_i); down-items
       inner: next level (the innermost level has no skip)
       up:    SkipMerge(inner, skip, features); up-items; Upsample(factor_i)
-    then GN -> SiLU -> conv3 to ``out_channels``. I/O is [B, C, T]."""
+    then GN -> SiLU -> conv3 to ``out_channels``. I/O is [B, C, T].
+    Cross-attention items attend to ``embedding=`` [B, N,
+    embedding_features]; a level with ``context_channels`` > 0 injects
+    ``channels=[...]``'s tensor at that depth."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  channels: Sequence[int], factors: Sequence[int],
                  items: Sequence[int], attentions: Sequence[int],
+                 cross_attentions: Optional[Sequence[int]] = None,
+                 context_channels: Optional[Sequence[int]] = None,
+                 embedding_features: Optional[int] = None,
                  attention_heads: int = 8, attention_features: int = 64,
                  resnet_groups: int = 8, use_modulation: bool = True,
                  modulation_features: Optional[int] = None, dtype=None,
                  param_dtype=torch.float32, device=None):
         super().__init__()
+        cross_attentions = cross_attentions or [0] * len(channels)
+        context_channels = context_channels or [0] * len(channels)
+        if any(cross_attentions) and embedding_features is None:
+            raise ValueError("cross_attentions requires embedding_features "
+                             "(the width of embedding=)")
         self.num_levels = len(channels)
         self.factors = tuple(factors)
         self.resnet_groups = resnet_groups
@@ -272,7 +345,9 @@ class XUNet(nn.Module):
         def stack(i: int) -> ItemStack:
             return ItemStack(channels[i], items[i], attentions[i],
                              use_modulation, resnet_groups, attention_heads,
-                             attention_features, modulation_features, **common)
+                             attention_features, modulation_features,
+                             cross_attentions[i], context_channels[i],
+                             embedding_features, **common)
 
         prev_c = in_channels
         for i in range(self.num_levels):
@@ -306,45 +381,49 @@ class XUNet(nn.Module):
                 embedding: Optional[Tensor] = None,
                 channels: Optional[Sequence[Optional[Tensor]]] = None,
                 hidden=None, return_hidden: bool = False,
-                **unused_kwargs) -> Tensor:
-        if embedding is not None:
-            raise NotImplementedError(
-                "embedding= (cross-attention conditioning) is not ported yet "
-                "(ROADMAP: conditioning)")
-        if channels is not None and any(c is not None for c in channels):
-            raise NotImplementedError(
-                "channels= (context injection) is not ported yet "
-                "(ROADMAP: conditioning)")
-        if hidden is not None or return_hidden:
-            raise NotImplementedError(
-                "hidden=/return_hidden= (encoder reuse) is not ported yet "
-                "(ROADMAP: encoder reuse)")
+                **unused_kwargs):
+        """``channels`` is padded with ``None`` to the number of levels, so
+        ``[None] * k + [latent]`` injects at depth k. ``return_hidden=True``
+        also returns the encoder state ``(bottleneck, skips)`` (opaque, in
+        the port's channels-last layout), taken before the up path pops the
+        skips; ``hidden=state`` skips the down path and decodes that state
+        with the current ``features`` (encoder reuse across sampling
+        steps)."""
         _check_unused_kwargs(unused_kwargs)
         total_factor = math.prod(self.factors)
         if x.shape[-1] % total_factor:
             raise ValueError(
                 f"input length {x.shape[-1]} must be divisible by the product "
                 f"of the downsampling factors ({total_factor})")
+        contexts = list(channels or [])
+        contexts += [None] * (self.num_levels - len(contexts))
 
-        h = _cast(x.transpose(1, 2), self.dtype)  # [B, T, C]
-        skips = []
-        for i in range(self.num_levels):
-            h = getattr(self, f"down_{i}")(h)
-            h = getattr(self, f"items_down_{i}")(h, features)
-            if i < self.num_levels - 1:
-                skips.append(h)
+        if hidden is not None:
+            h, skips = hidden[0], list(hidden[1])
+        else:
+            h = _cast(x.transpose(1, 2), self.dtype)  # [B, T, C]
+            skips = []
+            for i in range(self.num_levels):
+                h = getattr(self, f"down_{i}")(h)
+                h = getattr(self, f"items_down_{i}")(h, features, embedding,
+                                                     contexts[i])
+                if i < self.num_levels - 1:
+                    skips.append(h)
+        enc = (h, tuple(skips))
         for i in reversed(range(self.num_levels)):
             if i < self.num_levels - 1:
                 skip = getattr(self, f"skip_{i}")
                 h = skip(h, skips.pop(), features)
-            h = getattr(self, f"items_up_{i}")(h, features)
+            h = getattr(self, f"items_up_{i}")(h, features, embedding,
+                                               contexts[i])
             h = getattr(self, f"up_{i}")(h)
 
         cast = lambda t: _cast(t, self.dtype)  # noqa: E731
         h = group_norm(h, self.resnet_groups, cast(self.out_gn_scale),
                        cast(self.out_gn_bias))
         h = conv3(F.silu(h), cast(self.out_kernel), cast(self.out_bias))
-        return h.transpose(1, 2).to(x.dtype)
+        out = h.transpose(1, 2).to(x.dtype)
+        return (out, enc) if return_hidden else out
 
 
 class SigmaEmbedding(nn.Module):
@@ -395,3 +474,80 @@ class TimeConditioningWrapper(nn.Module):
         if features is not None:
             time_features = time_features + features.to(time_features.dtype)
         return self.inner(x, None, features=time_features, **kwargs)
+
+
+def _double_batch(tree, b: int):
+    """Each tensor in ``tree`` (nested lists, tuples and dicts) whose leading
+    dim is ``b``, concatenated with itself; everything else as it is (a
+    ``hidden`` state from a doubled pass has batch 2b and passes through)."""
+    if isinstance(tree, Tensor):
+        return torch.cat([tree, tree]) if tree.ndim and tree.shape[0] == b \
+            else tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_double_batch(t, b) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _double_batch(v, b) for k, v in tree.items()}
+    return tree
+
+
+class ClassifierFreeGuidanceWrapper(nn.Module):
+    """Classifier-free guidance: a learned fixed (null) embedding
+    ``fixed_embedding`` [max_length, features] (init normal(0.02)), used
+    when no ``embedding`` is given; train-time embedding dropout (one
+    Bernoulli(``embedding_mask_proba``) per batch row, drawn from
+    ``generator``); and, for ``embedding_scale`` != 1, one batch-doubled
+    pass over [cond; fixed] combined as out_fixed + s·(out − out_fixed)."""
+
+    def __init__(self, inner: nn.Module, embedding_max_length: int,
+                 embedding_features: int, dtype=None,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.inner = inner
+        self.fixed_embedding = new_param(embedding_max_length,
+                                         embedding_features,
+                                         dtype=param_dtype, device=device)
+
+    def init_params(self, generator: Optional[torch.Generator]) -> None:
+        self.fixed_embedding.normal_(0.0, 0.02, generator=generator)
+
+    @staticmethod
+    def draw_mask(batch: int, proba: float, generator: torch.Generator,
+                  device) -> Tensor:
+        """[B, 1, 1] booleans, True with probability ``proba``."""
+        return torch.rand((batch, 1, 1), generator=generator,
+                          device=device) < proba
+
+    def forward(self, x: Tensor, sigmas: Optional[Tensor] = None, *,
+                embedding: Optional[Tensor] = None,
+                embedding_mask_proba: float = 0.0,
+                embedding_scale: float = 1.0,
+                generator: Optional[torch.Generator] = None, **kwargs):
+        b = x.shape[0]
+        fixed = self.fixed_embedding
+        fixed_b = fixed[None].expand((b,) + fixed.shape).to(
+            embedding.dtype if embedding is not None else fixed.dtype)
+        if embedding is None:
+            return self.inner(x, sigmas, embedding=fixed_b, **kwargs)
+
+        if embedding_mask_proba > 0.0:
+            if generator is None:
+                raise ValueError(
+                    "embedding_mask_proba > 0 draws its mask from "
+                    "generator=, and none was given")
+            mask = self.draw_mask(b, embedding_mask_proba, generator,
+                                  x.device)
+            embedding = torch.where(mask, fixed_b, embedding)
+
+        if embedding_scale == 1.0:
+            return self.inner(x, sigmas, embedding=embedding, **kwargs)
+
+        # Guided: one batch-doubled pass [conditioned; fixed].
+        res = self.inner(torch.cat([x, x]), _double_batch(sigmas, b),
+                         embedding=torch.cat([embedding, fixed_b]),
+                         **_double_batch(kwargs, b))
+        # With return_hidden the state is the doubled pass's (batch 2b).
+        with_hidden = kwargs.get("return_hidden", False)
+        out2, enc = res if with_hidden else (res, None)
+        out, out_fixed = out2[:b], out2[b:]
+        out = out_fixed + embedding_scale * (out - out_fixed)
+        return (out, enc) if with_hidden else out

@@ -5,8 +5,15 @@ audio_diffusion_tpu/presets.py)::
 
     model = DiffusionModel(net_t=UNetV0, **presets.UNCONDITIONAL_48K)
 
-Only ``UNCONDITIONAL_48K`` runs in the port so far; the others need
-conditioning or task models that are not ported yet.
+    model = DiffusionModel(net_t=UNetV0, text_encoder=StubTextEncoder(),
+                           **presets.TEXT_CONDITIONAL_48K)
+    model.sample(noise, text=["rain on a roof"], embedding_scale=5.0,
+                 num_steps=50)
+
+``UNCONDITIONAL_48K`` and ``TEXT_CONDITIONAL_48K`` run in the port. The
+text-conditional one needs a ``text_encoder`` (``ops.text.StubTextEncoder``;
+the T5 encoders are not ported yet), or ``embedding=`` passed directly. The
+others need task models that are not ported yet.
 """
 from __future__ import annotations
 

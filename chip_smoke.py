@@ -7,7 +7,15 @@ with and without the kernels, then drives the two main paths with random
 weights made from a seed: a 50-step ``VSampler`` sample of 2^18-sample
 stereo at batch 1 in bf16, through ``DiffusionModel.sample``; and a few
 Adam steps of the same net at batch 8 (bf16 compute, float32 master
-parameters), through ``DiffusionModel.loss`` and ``make_train_step``.
+parameters), through ``DiffusionModel.loss`` and ``make_train_step``. Then
+the text-conditional net (``presets.TEXT_CONDITIONAL_48K`` with the stub
+text encoder: cross-attention at levels 3-8, classifier-free guidance): a
+guided 50-step sample of one caption (``text=``, guidance 5, the item at
+batch 2), the same with encoder reuse (k = 2), the cross-attention's device
+time from a short profile, and Adam steps at batch 8 with ``embedding=``
+from eight captions and embedding dropout 0.1. Before the flagship, a
+small conditioned net (cross-attention, context injection, CFG) is held on
+the card against the CPU, guided, with and without encoder reuse.
 
     python3 chip_smoke.py
 
@@ -15,7 +23,10 @@ Each phase prints one JSON line; any failure exits non-zero. The last
 lines are the card's name and power limit as ``nvidia-smi`` gives them, the
 kernels summary and ``{"ok": true, "device": {...}}``. In the summary, the
 forward row's ``launches`` counts the 50-step sample's and the backward
-row's the timed train steps' (42 per step), and ``ms``, ``plain_ms``,
+row's the timed train steps' (42 per step); ``guided_launches`` (2,100),
+``reuse_launches`` (1,575 = 25 full passes of 42 + 25 decoder passes of 21)
+and ``text_train_launches`` count the text-conditional paths', and the
+``guided_batch_*`` keys are the per-pass sums at batch 2. ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per pass of the net at batch 1: each
 level's per-item bf16 device time times that level's items per pass (42 in
 all); ``host_ms`` is the host's time to enqueue the same calls. The
@@ -23,6 +34,8 @@ backward row's ``train_batch_ms``, ``train_batch_bound_ms`` and
 ``train_batch_library_ms`` are the same sums at the train step's batch of
 8, and ``conv_sources`` names the headers of its two convolutions.
 Without a CUDA device it exits with code 1 and prints no result.
+The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
+guided pass's batch of 2, with the same bars.
 
 Tolerances (kernel vs plain version, same inputs): float32 with TF32 off,
 max-abs ≤ 2e-4·max(1, max|y|), sums taken in another order; bfloat16
@@ -55,6 +68,7 @@ from __future__ import annotations
 
 import cProfile
 import functools
+import gc
 import json
 import math
 import pstats
@@ -75,6 +89,13 @@ GRAD_NAMES = ("x", "gn1s", "gn1b", "k1", "c1b", "gn2s", "gn2b", "k2", "c2b",
               "mods", "modb", "mgs", "mgb")
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
+# The guided pass runs [cond; fixed] as one batch of 2 for a batch-1 sample.
+GUIDED_BATCH = 2
+GUIDANCE = 5.0
+CAPTIONS = ["a dog barking in the rain", "rain on a tin roof",
+            "a crowd cheering in a stadium", "slow piano chords",
+            "birdsong at dawn", "an old car engine starting",
+            "waves breaking on a beach", "a church bell ringing"]
 # (C, L) of the flagship's nine levels at 2^18 samples, and items per level.
 LEVELS = [(8, 2**18), (32, 2**16), (64, 2**14), (128, 2**12), (256, 2**11),
           (512, 2**10), (512, 2**9), (1024, 2**8), (1024, 2**7)]
@@ -86,9 +107,13 @@ GROUPS = 8
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 REPS = 20
+FIXED_EMBEDDING = "inner.fixed_embedding"
 SMALL_CFG = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
                  items=[1, 2, 1], attentions=[0, 0, 1], attention_heads=4,
                  attention_features=8, modulation_features=64)
+SMALL_COND = dict(cross_attentions=[0, 0, 1], context_channels=[0, 0, 5],
+                  use_embedding_cfg=True, embedding_max_length=8,
+                  embedding_features=32)
 
 
 def emit(obj) -> None:
@@ -259,20 +284,22 @@ def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb,
 
 
 def phase_kernel_vs_plain(flush):
-    """Kernel vs plain version at each level's item shape, bf16 and f32. A
-    bf16 row also reports the conv's plan (tile, rows per CTA, splits, CTAs,
-    resident CTAs per SM, wave fill) and checks that a second call gives the
-    same bits."""
+    """Kernel vs plain version at each level's item shape, bf16 and f32 at
+    batch 1, and bf16 again at the guided pass's batch of 2 ([cond; fixed]).
+    A bf16 row also reports the conv's plan (tile, rows per CTA, splits,
+    CTAs, resident CTAs per SM, wave fill) and checks that a second call
+    gives the same bits. Returns the batch-1 rows and the batch-2 rows."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         conv_occupancy, fused_resnet_item, resnet_item_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    rows = {1: [], GUIDED_BATCH: []}
+    for dtype, batch in ((torch.bfloat16, 1), (torch.float32, 1),
+                         (torch.bfloat16, GUIDED_BATCH)):
         dname = str(dtype).split(".")[-1]
         for level, (c, length) in enumerate(LEVELS):
-            args = item_inputs(c, length, dtype, gen)
+            args = item_inputs(c, length, dtype, gen, batch=batch)
             with torch.inference_mode():
                 out = fused_resnet_item(*args, groups=GROUPS)
                 ref = resnet_item_reference(*args, groups=GROUPS)
@@ -283,16 +310,16 @@ def phase_kernel_vs_plain(flush):
                          else 2.0 ** -5 * ymax)
                 if not (err <= bound):
                     raise AssertionError(
-                        f"level {level} {dname}: kernel vs plain max-abs "
-                        f"{err} > {bound}")
+                        f"level {level} {dname} batch {batch}: kernel vs "
+                        f"plain max-abs {err} > {bound}")
                 extra = {}
                 if dtype == torch.bfloat16:
                     again = fused_resnet_item(*args, groups=GROUPS)
                     if not torch.equal(out, again):
                         raise AssertionError(
-                            f"level {level} bf16: two calls on the same "
-                            "inputs differ")
-                    extra = dict(conv_plan=conv_occupancy(c, length),
+                            f"level {level} bf16 batch {batch}: two calls on "
+                            "the same inputs differ")
+                    extra = dict(conv_plan=conv_occupancy(c, length, batch),
                                  bit_identical_rerun=True)
                 lib_args = list(args)
                 lib_args[0] = args[0].transpose(1, 2).contiguous()
@@ -306,12 +333,13 @@ def phase_kernel_vs_plain(flush):
                     lambda: resnet_item_reference(*args, groups=GROUPS), flush)
                 library_ms = cuda_ms(lambda: library_item(*lib_args), flush)
             esize = args[0].element_size()
-            nbytes = (2 * length * c + 2 * 3 * c * c + 8 * c + 2 * c) * esize
-            flops = 12 * c * c * length
+            nbytes = (2 * batch * length * c + 2 * 3 * c * c + 8 * c
+                      + 2 * batch * c) * esize
+            flops = 12 * c * c * length * batch
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             flops_ms = flops / PEAK_FLOPS[dname] * 1e3
             row = dict(phase="kernel_vs_plain", kernel="fused_resnet_item",
-                       level=level, channels=c, length=length, batch=1,
+                       level=level, channels=c, length=length, batch=batch,
                        **extra, dtype=dname, max_abs_err=err, tolerance=bound,
                        max_abs_out=ymax, kernel_ms=kernel_ms,
                        kernel_host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -320,8 +348,8 @@ def phase_kernel_vs_plain(flush):
                        bytes=nbytes, flops=flops,
                        items_per_forward=2 * ITEMS[level])
             emit(row)
-            rows.append(row)
-    return rows
+            rows[batch].append(row)
+    return rows[1], rows[GUIDED_BATCH]
 
 
 def backward_of(fn, inputs, grad_out):
@@ -480,6 +508,40 @@ def phase_small_reference():
         raise AssertionError(f"small reference: max-abs {err}")
 
 
+def phase_cond_small_reference():
+    """The small net with cross-attention, context injection and CFG on the
+    card (kernel path, f32) vs the same weights on the CPU: a guided sample,
+    and the same with encoder reuse (k = 2)."""
+    import torch
+    from audio_diffusion_torch import DiffusionModel, UNetV0
+
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **SMALL_CFG,
+                         **SMALL_COND)
+    fill_zero_params(cpu)
+    gpu = DiffusionModel(net_t=UNetV0, **SMALL_CFG, **SMALL_COND)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    gen = torch.Generator().manual_seed(7)
+    noise = torch.randn(1, 2, 256, generator=gen)
+    emb = torch.randn(1, 8, 32, generator=gen)
+    ctx = torch.randn(1, 5, 32, generator=gen)
+    errs = {}
+    for reuse in (1, 2):
+        kw = dict(num_steps=10, embedding_scale=3.0, encoder_reuse=reuse)
+        want = cpu.sample(noise, embedding=emb, channels=[None, None, ctx],
+                          **kw)
+        got = gpu.sample(noise, embedding=emb.to(gpu.device),
+                         channels=[None, None, ctx.to(gpu.device)],
+                         **kw).cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"cond small reference k={reuse}: "
+                                 "non-finite values")
+        errs[f"encoder_reuse_{reuse}"] = (got - want).abs().max().item()
+    emit(dict(phase="cond_small_reference", steps=10, dtype="float32",
+              embedding_scale=3.0, max_abs_err=errs, tolerance=1e-3))
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f"cond small reference: max-abs {errs}")
+
+
 def fill_zero_params(model) -> None:
     """The flax initializers zero the modulation and skip gates and every
     bias; give those small random values so each path carries signal."""
@@ -536,6 +598,176 @@ def phase_train_small():
         raise AssertionError(f"train_small: gradient rel err {worst}")
 
 
+def sample_runs(model, noise, **kw):
+    """A 2-step warm-up, then three ``NUM_STEPS`` samples through
+    ``DiffusionModel.sample``: (the first's output, the item launches counted
+    over the first alone, ms per step of each, peak device memory)."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    model.sample(noise, num_steps=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, step_ms = [], []
+    for run in range(3):
+        if run == 0:
+            resnet.fused_resnet_item.launches = 0
+        t0 = time.perf_counter()
+        outs.append(model.sample(noise, num_steps=NUM_STEPS, **kw))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+        if run == 0:
+            launches = resnet.fused_resnet_item.launches
+    return outs[0], launches, step_ms, torch.cuda.max_memory_allocated()
+
+
+def build_text_model(torch, seed: int = 0):
+    from audio_diffusion_torch import DiffusionModel, UNetV0, presets
+    from audio_diffusion_torch.ops.text import StubTextEncoder
+
+    model = DiffusionModel(net_t=UNetV0, **presets.TEXT_CONDITIONAL_48K,
+                           text_encoder=StubTextEncoder(),
+                           dtype=torch.bfloat16, seed=seed)
+    fill_zero_params(model)
+    return model
+
+
+def phase_sample_text(model, noise):
+    """The text-conditional main path: a guided 50-step sample of one
+    caption (``text=``, the stub encoder, guidance 5) at batch 1, so the
+    item runs at batch 2 once per step. Then the same call with encoder
+    reuse (k = 2): per chunk of two steps one full pass and one decoder-only
+    pass. Returns (guided launches, reuse launches)."""
+    import torch
+
+    per_pass = 2 * sum(ITEMS)
+    text = dict(text=CAPTIONS[:1], embedding_scale=GUIDANCE)
+    out, launches, step_ms, peak = sample_runs(model, noise, **text)
+    unguided = model.sample(noise, num_steps=NUM_STEPS, text=CAPTIONS[:1])
+    rel = ((out.float() - unguided.float()).norm()
+           / unguided.float().norm()).item()
+    emit(dict(phase="sample_text", steps=NUM_STEPS, length=LENGTH, batch=1,
+              item_batch=GUIDED_BATCH, dtype="bfloat16",
+              embedding_scale=GUIDANCE, captions=CAPTIONS[:1],
+              ms_per_step=sorted(step_ms)[1], ms_per_step_runs=step_ms,
+              item_launches=launches, expected_launches=per_pass * NUM_STEPS,
+              peak_memory_bytes=peak, out_shape=list(out.shape),
+              out_std=out.float().std().item(),
+              rel_l2_guided_vs_unguided=rel))
+    if launches != per_pass * NUM_STEPS:
+        raise AssertionError(f"sample_text: {launches} item launches, "
+                             f"expected {per_pass * NUM_STEPS}")
+    if out.shape != noise.shape or not torch.isfinite(out).all():
+        raise AssertionError("sample_text: bad shape or non-finite values")
+    if not rel > 1e-3:
+        raise AssertionError(f"sample_text: the guided output is the "
+                             f"unguided one (relative L2 {rel})")
+
+    fast, reuse_launches, step_ms, peak = sample_runs(
+        model, noise, encoder_reuse=2, **text)
+    expected = NUM_STEPS // 2 * (per_pass + per_pass // 2)
+    rel = ((fast.float() - out.float()).norm() / out.float().norm()).item()
+    emit(dict(phase="sample_reuse", steps=NUM_STEPS, encoder_reuse=2,
+              length=LENGTH, batch=1, item_batch=GUIDED_BATCH,
+              dtype="bfloat16", embedding_scale=GUIDANCE,
+              ms_per_step=sorted(step_ms)[1], ms_per_step_runs=step_ms,
+              item_launches=reuse_launches, expected_launches=expected,
+              peak_memory_bytes=peak, out_shape=list(fast.shape),
+              rel_l2_vs_exact=rel))
+    if reuse_launches != expected:
+        raise AssertionError(f"sample_reuse: {reuse_launches} item launches, "
+                             f"expected {expected}")
+    if fast.shape != noise.shape or not torch.isfinite(fast).all():
+        raise AssertionError("sample_reuse: bad shape or non-finite values")
+    return launches, reuse_launches
+
+
+def phase_attention_profile(model, noise, steps: int = 2):
+    """Device time of the cross-attention items (and of the self-attention
+    items beside them) over ``steps`` guided net calls at batch 1, each item
+    wrapped in a profiler range by forward hooks; the time of a range is its
+    kernels' device time. A second, unprofiled run times each item between
+    CUDA events recorded by the same hooks (its span on the stream, gaps
+    the host leaves included)."""
+    import torch
+    from audio_diffusion_torch import cast_inference_params
+    from audio_diffusion_torch.ops.attention import (AttentionItem,
+                                                     CrossAttentionItem)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    params = cast_inference_params(model.params, torch.bfloat16)
+    emb = torch.as_tensor(model.net.text_encoder(CAPTIONS[:1]),
+                          device=model.device)
+    sig = torch.full((1,), 0.5, device=model.device)
+    handles, counts = [], {"cross_attention": 0, "self_attention": 0}
+    spans, timing = {k: [] for k in counts}, []
+    for m in model.net.module.modules():
+        if type(m) in (CrossAttentionItem, AttentionItem):
+            name = ("cross_attention" if type(m) is CrossAttentionItem
+                    else "self_attention")
+            counts[name] += 1
+            ranges = []
+
+            def enter(mod, args, name=name, ranges=ranges):
+                ranges.append(record_function(name).__enter__())
+                if timing:
+                    spans[name].append(torch.cuda.Event(enable_timing=True))
+                    spans[name][-1].record()
+
+            def leave(mod, args, out, name=name, ranges=ranges):
+                ranges.pop().__exit__(None, None, None)
+                if timing:
+                    spans[name].append(torch.cuda.Event(enable_timing=True))
+                    spans[name][-1].record()
+
+            handles += [m.register_forward_pre_hook(enter),
+                        m.register_forward_hook(leave)]
+
+    def run():
+        with torch.inference_mode():
+            for _ in range(steps):
+                model.net.apply(params, noise, sig, embedding=emb,
+                                embedding_scale=GUIDANCE)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        if model.device.type == "cuda":
+            timing.append(True)
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    span_ms = {k: sum(a.elapsed_time(b) for a, b in zip(v[::2], v[1::2]))
+               / steps for k, v in spans.items()}
+    # A range's host-side event sums the kernels its ops launched; the
+    # device-side copy of the range spans first to last kernel, gaps and
+    # all, and is left out.
+    device_us = {k: 0.0 for k in counts}
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            if e.name in device_us:
+                device_us[e.name] += e.device_time_total
+        elif not getattr(e, "is_user_annotation", False):
+            busy_us += e.device_time_total
+    emit(dict(phase="attention_profile", steps=steps, batch=1,
+              item_batch=GUIDED_BATCH, dtype="bfloat16",
+              items_per_pass=counts,
+              device_ms_per_step={k: v / 1e3 / steps
+                                  for k, v in device_us.items()},
+              event_span_ms_per_step=span_ms,
+              all_kernels_ms_per_step=busy_us / 1e3 / steps))
+    if sum(device_us.values()) > busy_us:
+        raise AssertionError(f"attention profile: the ranges' kernels "
+                             f"({device_us}) exceed all kernels ({busy_us})")
+
+
 def phase_profile(name, run, **extra):
     """Device time by kernel over one call of ``run`` (torch.profiler), the
     device's busy share of the window's host time, and the host's Python
@@ -574,51 +806,78 @@ def phase_profile(name, run, **extra):
               host_own_ms={k: v * 1e3 for k, v in host}))
 
 
-def phase_train(model):
-    """The training main path: Adam steps of the flagship at full width and
+def phase_train(model, phase="train", **cond):
+    """A training main path: Adam steps of a flagship at full width and
     depth, bf16 compute over float32 master parameters, 2^18-sample stereo,
-    through ``DiffusionModel.loss`` and ``make_train_step``. Returns the item
-    launches (forward, backward) counted over the timed steps."""
+    through ``DiffusionModel.loss`` and ``make_train_step``, with ``cond``
+    (the conditioning kwargs) on every step. Where the net has CFG, the
+    embedding mask's draws are counted: ``fixed_embedding`` moves exactly
+    when a row was masked in an Adam step. Returns the item launches
+    (forward, backward) counted over the timed steps."""
     import torch
     from audio_diffusion_torch import make_train_step
     from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.ops.unet import ClassifierFreeGuidanceWrapper
 
     item = resnet.fused_resnet_item
     items_per_pass = 2 * sum(ITEMS)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device="cuda",
+    gen = torch.Generator(device=model.device).manual_seed(4)
+    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device=model.device,
                         generator=gen).clamp_(-1.0, 1.0)
     leaves = list(model.params.values())
-    # Every parameter receives a gradient (this also warms the kernels up).
-    grads = torch.autograd.grad(model.loss(model.params, gen, batch), leaves,
-                                allow_unused=True)
-    missing = [n for n, g in zip(model.params, grads)
-               if g is None or not torch.isfinite(g).all() or not g.any()]
-    if missing:
-        raise AssertionError(f"train: no usable gradient for {missing[:5]} "
-                             f"({len(missing)} parameters)")
-    del grads
-    before = [p.detach().clone() for p in leaves]
-    init_state, train_step = make_train_step(
-        model.loss, functools.partial(torch.optim.Adam, lr=1e-4))
-    state = init_state(model.params, gen)
-    state, _ = train_step(state, batch)  # warm-up: Adam allocates its moments
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    item.launches = item.backward_launches = 0
-    step_ms, metrics = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch)
+    masks = []
+    draw = ClassifierFreeGuidanceWrapper.draw_mask
+
+    def counted_draw(*args):
+        masks.append(draw(*args))
+        return masks[-1]
+
+    spy = mock.patch.object(ClassifierFreeGuidanceWrapper, "draw_mask",
+                            staticmethod(counted_draw))
+    with spy:
+        # Every parameter receives a gradient (this also warms the kernels
+        # up); the fixed embedding only where a row was masked.
+        grads = torch.autograd.grad(
+            model.loss(model.params, gen, batch, **cond), leaves,
+            allow_unused=True)
+        masked_first = sum(int(m.sum()) for m in masks)
+        missing = [n for n, g in zip(model.params, grads)
+                   if g is None or not torch.isfinite(g).all()
+                   or not (g.any() or (n == FIXED_EMBEDDING
+                                       and not masked_first))]
+        if missing:
+            raise AssertionError(
+                f"{phase}: no usable gradient for {missing[:5]} "
+                f"({len(missing)} parameters)")
+        del grads
+        masks.clear()
+        before = [p.detach().clone() for p in leaves]
+        init_state, train_step = make_train_step(
+            model.loss, functools.partial(torch.optim.Adam, lr=1e-4))
+        state = init_state(model.params, gen)
+        # Warm-up: Adam allocates its moments.
+        state, _ = train_step(state, batch, **cond)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append({k: v.item() for k, v in m.items()})
-    launches = (item.launches, item.backward_launches)
+        torch.cuda.reset_peak_memory_stats()
+        item.launches = item.backward_launches = 0
+        step_ms, metrics = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch, **cond)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+        launches = (item.launches, item.backward_launches)
     peak = torch.cuda.max_memory_allocated()
     median = sorted(step_ms)[len(step_ms) // 2]
     still = [n for (n, p), p0 in zip(model.params.items(), before)
              if torch.equal(p.detach(), p0)]
-    emit(dict(phase="train", batch=TRAIN_BATCH, length=LENGTH,
+    masked = [int(m.sum()) for m in masks]
+    may_stay = ([FIXED_EMBEDDING] if masks and not sum(masked) else [])
+    extra = dict(embedding_mask_proba=cond.get("embedding_mask_proba"),
+                 masked_rows_per_step=masked,
+                 masked_rows_first_gradient=masked_first) if masks else {}
+    emit(dict(phase=phase, batch=TRAIN_BATCH, length=LENGTH,
               dtype="bfloat16", optimizer="Adam(lr=1e-4)", steps=TRAIN_STEPS,
               ms_per_step=median, ms_per_step_runs=step_ms,
               samples_per_s=TRAIN_BATCH / median * 1e3,
@@ -628,21 +887,24 @@ def phase_train(model):
               expected_launches=items_per_pass * TRAIN_STEPS,
               parameters=len(leaves),
               parameter_elements=sum(p.numel() for p in leaves),
-              peak_memory_bytes=peak))
+              **extra, peak_memory_bytes=peak))
     if launches != (items_per_pass * TRAIN_STEPS,) * 2:
         raise AssertionError(
-            f"{launches} (forward, backward) item launches in {TRAIN_STEPS} "
-            f"train steps, expected {items_per_pass} each per step")
+            f"{phase}: {launches} (forward, backward) item launches in "
+            f"{TRAIN_STEPS} train steps, expected {items_per_pass} each per "
+            "step")
     for m in metrics:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
-            raise AssertionError(f"train: non-finite metrics {m}")
+            raise AssertionError(f"{phase}: non-finite metrics {m}")
     if metrics[-1]["step"] != TRAIN_STEPS + 1:
-        raise AssertionError(f"train: step counter {metrics[-1]['step']}")
-    if still:
-        raise AssertionError(f"train: parameters that did not move: "
-                             f"{still[:5]} ({len(still)})")
+        raise AssertionError(f"{phase}: step counter {metrics[-1]['step']}")
+    if still != may_stay:
+        raise AssertionError(
+            f"{phase}: parameters that did not move: {still[:5]} "
+            f"({len(still)}; {sum(masked)} rows masked in the Adam steps)")
     del before
-    phase_profile("train_profile", lambda: train_step(state, batch), steps=1,
+    phase_profile(f"{phase}_profile",
+                  lambda: train_step(state, batch, **cond), steps=1,
                   batch=TRAIN_BATCH)
     return launches
 
@@ -678,39 +940,27 @@ def main() -> int:
               seconds=time.perf_counter() - t0))
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    rows = phase_kernel_vs_plain(flush)
+    rows, guided_rows = phase_kernel_vs_plain(flush)
     bwd_rows, bwd_train_rows = phase_kernel_backward_vs_plain(flush)
     del flush
     phase_small_reference()
     phase_train_small()
+    phase_cond_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     phase_forward(model, noise)
 
-    # Warm-up, then the main path: counts set to 0 just before, read after.
-    model.sample(noise, num_steps=2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resnet.fused_resnet_item.launches = 0
-    t0 = time.perf_counter()
-    out = model.sample(noise, num_steps=NUM_STEPS)
-    torch.cuda.synchronize()
-    step_ms = [(time.perf_counter() - t0) * 1e3 / NUM_STEPS]
-    launches = resnet.fused_resnet_item.launches
-    # Two more timed samples: host time per step varies between runs.
-    for _ in range(2):
-        t0 = time.perf_counter()
-        model.sample(noise, num_steps=NUM_STEPS)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+    # Warm-up, then the main path: counts set to 0 just before, read after;
+    # two more timed samples, since host time per step varies between runs.
+    out, launches, step_ms, peak = sample_runs(model, noise)
     items_per_forward = 2 * sum(ITEMS)
     emit(dict(phase="sample", steps=NUM_STEPS, length=LENGTH, batch=1,
               dtype="bfloat16", ms_per_step=sorted(step_ms)[1],
               ms_per_step_runs=step_ms, item_launches=launches,
               expected_launches=items_per_forward * NUM_STEPS,
-              peak_memory_bytes=torch.cuda.max_memory_allocated(),
+              peak_memory_bytes=peak,
               out_shape=list(out.shape),
               out_std=out.float().std().item()))
     if launches != items_per_forward * NUM_STEPS:
@@ -723,6 +973,20 @@ def main() -> int:
 
     # The training main path: counts set to 0 inside, just before its steps.
     train_launches = phase_train(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The text-conditional paths (guided sample, with and without encoder
+    # reuse; training with embedding dropout), each with its own counts.
+    model = build_text_model(torch)
+    text_launches = phase_sample_text(model, noise)
+    phase_attention_profile(model, noise)
+    embedding = torch.as_tensor(model.net.text_encoder(CAPTIONS),
+                                device=model.device)
+    text_train_launches = phase_train(model, "train_text",
+                                      embedding=embedding,
+                                      embedding_mask_proba=0.1)
 
     # Per pass of the net at batch 1: each level's per-item bf16 time times
     # its items per pass.
@@ -745,14 +1009,22 @@ def main() -> int:
                 "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
                 "library_ms": per_pass("library_ms")}
 
+    guided = summary("", "", "", guided_rows)
     print(smi)
     emit({"kernels": [
         summary("fused_resnet_item", KERNEL_SOURCE, REPLACES, rows,
                 launches=launches, train_launches=train_launches[0],
-                conv_source=CONV_SOURCE),
+                guided_launches=text_launches[0],
+                reuse_launches=text_launches[1],
+                text_train_launches=text_train_launches[0],
+                conv_source=CONV_SOURCE,
+                **{f"guided_batch_{k}": guided[k]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "max_abs_err")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,
+                text_train_launches=text_train_launches[1],
                 conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
                 train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
                                    for r in bwd_train_rows),

@@ -303,3 +303,40 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for name, a, b in zip(cpu.params, g_cpu, g_gpu):
         bound = 1e-3 * a.abs().max().item() + 1e-6 * norm
         assert (a - b).abs().max().item() <= bound, name
+
+
+@pytest.mark.cuda
+def test_conditioned_net_on_card_matches_cpu(cuda_device):
+    """The small net with cross-attention, context injection and CFG: a
+    guided 4-step sample, plain and with encoder reuse, on the card against
+    the same weights on the CPU (float32, max-abs 1e-3); the guided pass
+    launches the item at batch 2 once per step, and a reuse step's decoder
+    half of them."""
+    cfg = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
+               items=[1, 2, 1], attentions=[0, 0, 1], attention_heads=4,
+               attention_features=8, modulation_features=64,
+               cross_attentions=[0, 0, 1], context_channels=[0, 0, 5],
+               use_embedding_cfg=True, embedding_max_length=8,
+               embedding_features=32)
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **cfg)
+    with torch.no_grad():
+        for p in cpu.params.values():
+            if not p.any():
+                p.normal_(0.0, 0.05, generator=cpu.generator)
+    gpu = DiffusionModel(net_t=UNetV0, device=cuda_device, **cfg)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    rs = np.random.default_rng(3)
+    noise = torch.from_numpy(rs.standard_normal((1, 2, 256)).astype(np.float32))
+    emb = torch.from_numpy(rs.standard_normal((1, 8, 32)).astype(np.float32))
+    ctx = torch.from_numpy(rs.standard_normal((1, 5, 32)).astype(np.float32))
+    per_pass = 2 * (1 + 2 + 1)
+    for reuse, launches in ((1, 4 * per_pass), (2, 2 * per_pass + 2 * 4)):
+        kw = dict(num_steps=4, embedding_scale=3.0, encoder_reuse=reuse)
+        want = cpu.sample(noise, embedding=emb, channels=[None, None, ctx],
+                          **kw)
+        before = fused_resnet_item.launches
+        got = gpu.sample(noise, embedding=emb.cuda(),
+                         channels=[None, None, ctx.cuda()], **kw).cpu()
+        assert fused_resnet_item.launches - before == launches
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() < 1e-3, reuse

@@ -116,11 +116,12 @@ LEVELS = [(8, 2**18), (32, 2**16), (64, 2**14), (128, 2**12), (256, 2**11),
           (512, 2**10), (512, 2**9), (1024, 2**8), (1024, 2**7)]
 
 
-@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("batch", [1, 2, 8])
 @pytest.mark.parametrize("channels,length", LEVELS)
 def test_conv_plan_at_flagship_levels(channels, length, batch):
     """The bf16 forward conv's tile and split-K (conv_plan) at the flagship's
-    nine level shapes: the splits cover K = 3·C exactly, without overlap;
+    nine level shapes, at batch 1 (sampling), 2 (the guided pass's
+    [cond; fixed]) and 8 (training): the splits cover K = 3·C exactly, without overlap;
     the tile is a wgmma width that covers C; the workspace stays within its
     cap; the grid fills a wave of 132 SMs (at most 4 of them idle) wherever
     one row of 64 per CTA and one K chunk per split could, and a split grid

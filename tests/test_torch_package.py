@@ -15,7 +15,8 @@ CFG = dict(in_channels=2, channels=[8, 16], factors=[1, 2], items=[1, 1],
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.convert;"
+    code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.convert, "
+            "audio_diffusion_torch.ops.text;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -5,6 +5,8 @@ on the 3-level config of tests/test_parity_full_model.py.
 Tolerance: waveform MSE ≤ 1e-6 in float32, the bar of
 test_parity_full_model.py (measured: 3.1e-13).
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -90,11 +92,26 @@ def test_sampler_routing_and_unported_options():
                            sampler_schedule=UniformLambdaSchedule(), **CFG)
     assert isinstance(model.sampler, VSampler)
     assert isinstance(model.sampler.schedule, UniformLambdaSchedule)
-    noise = torch.zeros(1, 2, LENGTH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.sample(noise, num_steps=4, encoder_reuse=2)
+    noise = torch.randn(1, 2, LENGTH, generator=torch.Generator().manual_seed(0))
+    # encoder_reuse reaches the sampler: chunks of 2 steps, so 3 steps raise.
+    out = model.sample(noise, num_steps=4, encoder_reuse=2)
+    assert out.shape == noise.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="divisible by encoder_reuse"):
+        model.sample(noise, num_steps=3, encoder_reuse=2)
     # diffusion_* kwargs reach the diffusion (None: its default U[0, 1)).
     model = DiffusionModel(net_t=UNetV0, device="cpu",
                            diffusion_sigma_distribution=None, **CFG)
     assert (model.diffusion.sigma_distribution.vmin,
             model.diffusion.sigma_distribution.vmax) == (0.0, 1.0)
+
+
+def test_unroll_is_accepted_and_ignored():
+    """The JAX sampler's scan ``unroll=`` (passed by its export path): the
+    port's Python loop takes it without a warning and gives the same bits."""
+    model = DiffusionModel(net_t=UNetV0, device="cpu", seed=3, **CFG)
+    noise = torch.randn(1, 2, LENGTH, generator=torch.Generator().manual_seed(1))
+    want = model.sample(noise, num_steps=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = model.sample(noise, num_steps=4, unroll=2)
+    assert torch.equal(got, want)

@@ -30,6 +30,26 @@ CFG = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
            attention_features=8, modulation_features=64)
 
 
+def cond_inputs(cfg, batch=2, length=LENGTH, rs=None):
+    """The conditioning a net built from ``cfg`` takes: ``embedding``
+    [batch, max_length, features] where it has cross-attention or CFG, and
+    ``channels`` with a [batch, ctx, L_i] tensor at each injecting depth.
+    Zeros, or seeded normals from ``rs``."""
+    def make(*shape):
+        return (jnp.zeros(shape) if rs is None else
+                jnp.asarray(rs.randn(*shape).astype(np.float32)))
+
+    kw = {}
+    if any(cfg.get("cross_attentions") or []) or cfg.get("use_embedding_cfg"):
+        kw["embedding"] = make(batch, cfg["embedding_max_length"],
+                               cfg["embedding_features"])
+    if any(cfg.get("context_channels") or []):
+        lengths = length // np.cumprod(cfg["factors"])
+        kw["channels"] = [make(batch, c, n) if c else None
+                          for c, n in zip(cfg["context_channels"], lengths)]
+    return kw
+
+
 def jax_net_and_params(seed=0, length=LENGTH, **overrides):
     """The JAX net and a seeded random parameter tree of its shape (every
     leaf random, so the zero-initialized gates carry signal too)."""
@@ -38,7 +58,8 @@ def jax_net_and_params(seed=0, length=LENGTH, **overrides):
     x = jnp.zeros((2, 2, length))
     sigmas = jnp.zeros((2,)) if net.uses_sigma else None
     shapes = jax.eval_shape(lambda: net.module.init(
-        {"params": jax.random.key(0)}, x, sigmas))["params"]
+        {"params": jax.random.key(0)}, x, sigmas,
+        **cond_inputs(cfg, length=length)))["params"]
     rs = np.random.RandomState(seed)
 
     def leaf(path, s):
@@ -169,8 +190,7 @@ def test_default_init_matches_flax_distributions():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dim=2), dict(use_embedding_cfg=True), dict(use_text_conditioning=True),
-    dict(cross_attentions=[0, 0, 1]), dict(context_channels=[0, 0, 4]),
+    dict(dim=2), dict(use_text_conditioning=True, text_encoder=None),
     dict(use_remat=True), dict(channel_change="first_item")])
 def test_unported_options_raise(kwargs):
     cfg = {**CFG, **kwargs}
@@ -179,16 +199,50 @@ def test_unported_options_raise(kwargs):
         UNetV0(dim=dim, device="cpu", **cfg)
 
 
-def test_unported_call_kwargs_raise(pair):
-    net, tree, model = pair
-    x = torch.zeros(1, 2, LENGTH)
-    sig = torch.zeros(1)
+@pytest.mark.parametrize("kwargs", [
+    dict(use_embedding_cfg=True, embedding_max_length=4,
+         embedding_features=8),
+    dict(use_text_conditioning=True, use_embedding_cfg=True,
+         embedding_max_length=4, embedding_features=8, text_encoder="stub"),
+    dict(cross_attentions=[0, 0, 1], embedding_features=8),
+    dict(context_channels=[0, 0, 4])])
+def test_conditioning_options_build_and_run(kwargs):
+    """The options that raised before the conditioning slice build a net
+    that runs a forward with the conditioning it takes."""
+    from audio_diffusion_torch.ops.text import StubTextEncoder
+
+    if kwargs.get("text_encoder") == "stub":
+        kwargs = dict(kwargs, text_encoder=StubTextEncoder(4, 8))
+    net = UNetV0(dim=1, device="cpu", **CFG, **kwargs)
+    net.init(torch.Generator().manual_seed(0))
+    assert net.text_encoder is kwargs.get("text_encoder")
+    cond = {}
+    if "cross_attentions" in kwargs:
+        cond["embedding"] = torch.randn(1, 4, 8)
+    if "context_channels" in kwargs:
+        cond["channels"] = [None, None, torch.randn(1, 4, LENGTH // 8)]
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.net.apply(model.params, x, sig,
-                            embedding=torch.zeros(1, 4, 8))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.net.apply(model.params, x, sig, return_hidden=True)
+        out = net.apply(net.module, torch.randn(1, 2, LENGTH),
+                        torch.full((1,), 0.5), **cond)
+    assert out.shape == (1, 2, LENGTH) and torch.isfinite(out).all()
+
+
+def test_unported_call_kwargs_raise(pair):
+    """The conditioning kwargs on the unconditioned net: an embedding= with
+    no cross-attention to read it changes nothing (as in the JAX net),
+    return_hidden= returns the encoder state beside the output, hidden=
+    decodes it; guidance knobs without CFG and a bad length still raise."""
+    net, tree, model = pair
+    x = torch.randn(1, 2, LENGTH, generator=torch.Generator().manual_seed(0))
+    sig = torch.full((1,), 0.5)
+    with torch.inference_mode():
+        out = model.net.apply(model.params, x, sig)
+        assert torch.equal(out, model.net.apply(
+            model.params, x, sig, embedding=torch.zeros(1, 4, 8)))
+        full, enc = model.net.apply(model.params, x, sig, return_hidden=True)
+        assert torch.equal(full, out)
+        assert torch.equal(model.net.apply(model.params, x, sig, hidden=enc),
+                           out)
         with pytest.raises(TypeError, match="use_embedding_cfg"):
             model.net.apply(model.params, x, sig, embedding_scale=3.0)
         with pytest.raises(ValueError, match="divisible"):
