@@ -5,17 +5,25 @@ training path (``VDiffusion`` loss, ``make_train_step``), with the fused
 resnet item's forward and backward as hand-written CUDA kernels; the
 text-conditional net (cross-attention, context injection, classifier-free
 guidance, ``text=`` through ``ops.text.StubTextEncoder``) and encoder reuse
-in ``VSampler``; and ``params_from_jax`` / ``params_to_jax`` to carry
-weights between the two packages.
+in ``VSampler``; ``params_from_jax`` / ``params_to_jax`` to carry
+weights between the two packages; the other samplers (``DPMSampler``,
+``SDESampler``), RePaint inpainting (``VInpainter``) and long-form
+generation (``generate_long``); the autoregressive model (``DiffusionAR``
+with ``ARVDiffusion`` and ``ARVSampler``), whose items run the kernels'
+no-modulation branch; and the T5 encoder stack behind
+``ops.text.RandomT5TextEncoder``.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import presets
 from .convert import params_from_jax, params_to_jax
-from .diffusion import (Diffusion, Distribution, LinearSchedule, Sampler,
-                        Schedule, UniformDistribution, UniformLambdaSchedule,
-                        VDiffusion, VSampler, mse_loss)
-from .models import DiffusionModel
+from .diffusion import (ARVDiffusion, ARVSampler, Diffusion, Distribution,
+                        DPMSampler, Inpainter, LinearSchedule, Sampler,
+                        Schedule, SDESampler, UniformDistribution,
+                        UniformLambdaSchedule, VDiffusion, VInpainter,
+                        VSampler, mse_loss)
+from .longform import generate_long
+from .models import DiffusionAR, DiffusionModel
 from .ops import Net, UNetV0, XUNet, cast_inference_params
 from .parallel import TrainState, make_train_step
 
@@ -26,12 +34,15 @@ __all__ = [
     "params_from_jax",
     "params_to_jax",
     "DiffusionModel",
+    "DiffusionAR",
+    "generate_long",
     "Net",
     "UNetV0",
     "XUNet",
     "cast_inference_params",
     "Diffusion",
     "VDiffusion",
+    "ARVDiffusion",
     "mse_loss",
     "Distribution",
     "UniformDistribution",
@@ -39,6 +50,11 @@ __all__ = [
     "make_train_step",
     "Sampler",
     "VSampler",
+    "SDESampler",
+    "DPMSampler",
+    "ARVSampler",
+    "Inpainter",
+    "VInpainter",
     "Schedule",
     "LinearSchedule",
     "UniformLambdaSchedule",

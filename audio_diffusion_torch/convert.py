@@ -15,6 +15,10 @@ Downsample [d·Cin, Cout], Upsample [Cin, d·Cout] and SkipCat [2C, C] kernels
 and ``fixed_embedding`` keep their layout. Port names are the JAX paths
 joined by dots, with a Dense's ``kernel`` named ``weight``. Both directions
 are strict: a leftover or a missing leaf raises.
+
+``t5_params_from_flax(params)`` takes the Flax T5 encoder's parameter tree
+(``FlaxT5EncoderModel.params``) and returns the ``state_dict`` of
+``ops.t5.T5EncoderStack``, also strictly.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "t5_params_from_flax"]
 
 _RESNET_LEAVES = ("gn1_scale", "gn1_bias", "conv1_kernel", "conv1_bias",
                   "gn2_scale", "gn2_bias", "conv2_kernel", "conv2_bias")
@@ -192,3 +196,68 @@ def params_to_jax(state: Mapping[str, Tensor]) -> dict:
         raise ValueError(f"params_to_jax: {sorted(set(state) ^ names)} "
                          "do not map onto the JAX tree")
     return tree
+
+
+def _t5_block(walk: _Walk, node: dict, prefix: str, first: bool) -> None:
+    layers = walk.take(node, "layer", prefix)
+    where = prefix + "layer."
+    attn = walk.take(layers, "0", where)
+    sa = walk.take(attn, "SelfAttention", where + "0.")
+    for key in ("q", "k", "v", "o"):
+        walk.child(sa, key, where + "0.SelfAttention.", walk.dense)
+    if first:
+        bias = walk.take(sa, "relative_attention_bias",
+                         where + "0.SelfAttention.")
+        walk.out[where + "0.SelfAttention.relative_attention_bias.weight"] = (
+            walk.take(bias, "embedding", where), False)
+        walk.done(bias, where + "0.SelfAttention.relative_attention_bias.")
+    walk.done(sa, where + "0.SelfAttention.")
+    _t5_norm(walk, attn, "layer_norm", where + "0.")
+    walk.done(attn, where + "0.")
+    ff = walk.take(layers, "1", where)
+    dense = walk.take(ff, "DenseReluDense", where + "1.")
+    for key in ("wi", "wo"):
+        walk.child(dense, key, where + "1.DenseReluDense.", walk.dense)
+    walk.done(dense, where + "1.DenseReluDense.")
+    _t5_norm(walk, ff, "layer_norm", where + "1.")
+    walk.done(ff, where + "1.")
+    walk.done(layers, where)
+    walk.done(node, prefix)
+
+
+def _t5_norm(walk: _Walk, node: dict, key: str, prefix: str) -> None:
+    norm = walk.take(node, key, prefix)
+    walk.leaf(norm, "weight", f"{prefix}{key}.")
+    walk.done(norm, f"{prefix}{key}.")
+
+
+def t5_params_from_flax(params: Mapping) -> Dict[str, Tensor]:
+    """Flax T5 encoder parameter tree (nested mappings of arrays, with or
+    without the outer ``{"params": ...}``) -> the state_dict of
+    ``ops.t5.T5EncoderStack`` (f32 CPU tensors). Dense kernels [in, out]
+    become ``nn.Linear`` weights [out, in]; embeddings keep their layout.
+    Block 0 must hold the relative-position bias and no other block may.
+    Strict: a leftover or a missing leaf raises."""
+    tree = _plain(params)
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    walk = _Walk("t5_params_from_flax")
+    shared = walk.take(tree, "shared", "")
+    walk.out["shared.weight"] = (walk.take(shared, "embedding", "shared."),
+                                 False)
+    walk.done(shared, "shared.")
+    encoder = walk.take(tree, "encoder", "")
+    blocks = walk.take(encoder, "block", "encoder.")
+    for i in range(len(blocks)):
+        walk.child(blocks, str(i), "encoder.block.",
+                   lambda node, prefix, first=(i == 0):
+                   _t5_block(walk, node, prefix, first))
+    walk.done(blocks, "encoder.block.")
+    _t5_norm(walk, encoder, "final_layer_norm", "encoder.")
+    walk.done(encoder, "encoder.")
+    walk.done(tree, "")
+    out = {}
+    for name, (a, is_dense) in walk.out.items():
+        a = np.array(a, dtype=np.float32)
+        out[name] = torch.from_numpy(a.T.copy() if is_dense else a)
+    return out

@@ -7,7 +7,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-__all__ = ["alpha_beta", "extend_dim", "pad_dims", "clip"]
+__all__ = ["alpha_beta", "extend_dim", "pad_dims", "clip", "linspace"]
 
 
 def alpha_beta(sigmas: Tensor) -> Tuple[Tensor, Tensor]:
@@ -36,3 +36,18 @@ def clip(x: Tensor, dynamic_threshold: float = 0.0) -> Tensor:
     scale = torch.clamp(scale, min=1.0)
     scale = extend_dim(scale, dim=x.ndim)
     return torch.maximum(torch.minimum(x, scale), -scale) / scale
+
+
+def linspace(start: float, stop: float, num: int, device=None) -> Tensor:
+    """float32 ``num`` points from ``start`` to ``stop`` with the JAX
+    package's rounding (``jnp.linspace`` under XLA): ``start·(1 − s) +
+    stop·s`` with s = k·f32(1/d) for k < d = num − 1, then ``stop``
+    exactly."""
+    if num == 1:
+        return torch.tensor([start], dtype=torch.float32, device=device)
+    div = num - 1
+    recip = torch.ones((), dtype=torch.float32, device=device) / div
+    step = torch.arange(div, dtype=torch.float32, device=device) * recip
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32,
+                                        device=device)])

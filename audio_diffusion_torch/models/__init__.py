@@ -1,3 +1,4 @@
 from .model import DiffusionModel
+from .tasks import DiffusionAR
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "DiffusionAR"]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -52,8 +53,14 @@ class DiffusionModel:
                     "True and a text_encoder (or pass embedding= directly)")
             if "embedding" in kwargs:
                 raise ValueError("pass either text= or embedding=, not both")
-            kwargs["embedding"] = torch.as_tensor(encoder(list(text)),
-                                                  device=self.device)
+            embedding = torch.as_tensor(encoder(list(text)),
+                                        device=self.device)
+            # float32, as the JAX package's jnp.asarray with x64 off (an
+            # encoder's numpy float32 output times an integer mask is
+            # float64).
+            if embedding.dtype == torch.float64:
+                embedding = embedding.float()
+            kwargs["embedding"] = embedding
         return kwargs
 
     @property
@@ -66,12 +73,11 @@ class DiffusionModel:
         """Draw fresh parameters with the JAX package's initializers
         (lecun-normal kernels, zero-init modulation and skip gates,
         normal(16) ``freqs``). ``x`` is an optional example batch
-        [B, in_channels, T], checked against the net."""
-        channels = None if x is None else torch.as_tensor(x).shape[1]
-        if channels is not None and channels != self.net.in_channels:
-            raise ValueError(f"example batch has {channels} channels, the "
-                             f"net takes {self.net.in_channels}")
-        return self.net.init(default(generator, self.generator))
+        [B, C, T] of the data, checked by the diffusion method against
+        the net's input layout."""
+        return self.diffusion.init_net_params(
+            default(generator, self.generator),
+            None if x is None else torch.as_tensor(x))
 
     def save(self, path) -> None:
         """Save the parameters as a ``state_dict`` (``torch.save``)."""
@@ -102,12 +108,27 @@ class DiffusionModel:
         return self.loss(self.params, default(generator, self.generator), x,
                          **self._process_cond(kwargs))
 
-    def sample(self, x_noisy, *args, params: Optional[Dict[str, Tensor]] = None,
+    def sample(self, *args, generator: Optional[torch.Generator] = None,
+               params: Optional[Dict[str, Tensor]] = None,
                **kwargs) -> Tensor:
-        """Draw samples from ``x_noisy`` [B, C, T] (moved to the model's
-        device). ``params=`` overrides the live parameters for this call
-        only, as a dict keyed like ``self.net.module.state_dict()``."""
+        """Draw samples: ``model.sample(x_noisy, num_steps=...)``, or, for a
+        sampler that makes its own start (``ARVSampler``),
+        ``model.sample(num_items=..., ...)``. Positional arrays are moved to
+        the model's device. A sampler that draws noise (``needs_key``) takes
+        ``generator`` (default: the model's) after the parameters; a
+        deterministic one raises if given one. ``params=`` overrides the
+        live parameters for this call only, as a dict keyed like
+        ``self.net.module.state_dict()``."""
+        if getattr(self.sampler, "needs_key", False):
+            lead = (default(generator, self.generator),)
+        elif generator is not None:
+            raise ValueError(f"{type(self.sampler).__name__} is "
+                             "deterministic and takes no generator")
+        else:
+            lead = ()
         with torch.inference_mode():
-            x_noisy = torch.as_tensor(x_noisy, device=self.device)
-            return self.sampler.sample(default(params, self.params), x_noisy,
+            args = tuple(torch.as_tensor(a, device=self.device)
+                         if isinstance(a, (Tensor, np.ndarray)) else a
+                         for a in args)
+            return self.sampler.sample(default(params, self.params), *lead,
                                        *args, **self._process_cond(kwargs))

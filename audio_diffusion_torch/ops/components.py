@@ -49,15 +49,17 @@ def UNetV0(
     wrapped in classifier-free guidance (``use_embedding_cfg``), wrapped in
     time conditioning, as in the JAX package. With
     ``use_text_conditioning`` the ``text_encoder`` (for example
-    ``ops.text.StubTextEncoder``) is attached as ``net.text_encoder``, and
+    ``ops.text.RandomT5TextEncoder`` or ``ops.text.StubTextEncoder``) is
+    attached as ``net.text_encoder``, and
     the model layer turns ``text=`` into ``embedding=`` with it.
 
     ``lane_fold`` and ``use_pallas`` are the JAX package's TPU switches: they
     are accepted and ignored (the port never folds lanes, and every resnet
     item runs the fused kernels, forward and backward, on a CUDA tensor). Not
     ported yet, and raising ``NotImplementedError``: dim 2/3, the pretrained
-    T5 encoder (``use_text_conditioning`` without a ``text_encoder``), remat
-    (activation checkpointing) and ``channel_change="first_item"``.
+    T5 encoder (``use_text_conditioning`` without a ``text_encoder``: its
+    ``t5-base`` weights are not in the repository), remat (activation
+    checkpointing) and ``channel_change="first_item"``.
     """
     if dim != 1:
         raise NotImplementedError(
@@ -74,9 +76,10 @@ def UNetV0(
             "context_channels must all have the same length")
     if use_text_conditioning and text_encoder is None:
         raise NotImplementedError(
-            "UNetV0 use_text_conditioning without text_encoder= needs the "
-            "T5 text encoder, which is not ported yet (ROADMAP: Queue 1 "
-            "item 16, the T5 encoder stack); pass a text_encoder such as "
+            "UNetV0 use_text_conditioning without text_encoder= builds the "
+            "pretrained T5TextEncoder (t5-base), whose weights are not in "
+            "the repository (ROADMAP: the pretrained T5 weights); pass a "
+            "text_encoder such as ops.text.RandomT5TextEncoder or "
             "ops.text.StubTextEncoder, or condition with embedding=")
     unported = {
         "use_remat": (use_remat or remat_policy is not None,

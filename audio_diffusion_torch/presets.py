@@ -5,15 +5,20 @@ audio_diffusion_tpu/presets.py)::
 
     model = DiffusionModel(net_t=UNetV0, **presets.UNCONDITIONAL_48K)
 
-    model = DiffusionModel(net_t=UNetV0, text_encoder=StubTextEncoder(),
+    model = DiffusionModel(net_t=UNetV0, text_encoder=RandomT5TextEncoder(),
                            **presets.TEXT_CONDITIONAL_48K)
     model.sample(noise, text=["rain on a roof"], embedding_scale=5.0,
                  num_steps=50)
 
-``UNCONDITIONAL_48K`` and ``TEXT_CONDITIONAL_48K`` run in the port. The
-text-conditional one needs a ``text_encoder`` (``ops.text.StubTextEncoder``;
-the T5 encoders are not ported yet), or ``embedding=`` passed directly. The
-others need task models that are not ported yet.
+    ar = DiffusionAR(net_t=UNetV0, in_channels=1, length=2**16,
+                     num_splits=4, **presets._NET_9LEVEL)
+
+``UNCONDITIONAL_48K`` and ``TEXT_CONDITIONAL_48K`` run in the port, and so
+does ``_NET_9LEVEL`` under ``DiffusionAR``. The text-conditional one needs
+a ``text_encoder``: ``ops.text.RandomT5TextEncoder`` (the T5 encoder stack
+with random weights) or ``ops.text.StubTextEncoder`` (the pretrained
+``T5TextEncoder`` waits for its weights), or ``embedding=`` passed
+directly. The others need task models that are not ported yet.
 """
 from __future__ import annotations
 

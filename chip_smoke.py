@@ -15,7 +15,21 @@ batch 2), the same with encoder reuse (k = 2), the cross-attention's device
 time from a short profile, and Adam steps at batch 8 with ``embedding=``
 from eight captions and embedding dropout 0.1. Before the flagship, a
 small conditioned net (cross-attention, context injection, CFG) is held on
-the card against the CPU, guided, with and without encoder reuse.
+the card against the CPU, guided, with and without encoder reuse. Then the
+other samplers on the flagship (a 25-step ``DPMSampler`` sample, a 50-step
+``SDESampler(eta=0.3)`` sample and ``eta=0`` against the VSampler sample
+bit for bit, ``generate_long`` of 2^19 samples in 2^18 windows with 2^16
+of overlap: one sample and two RePaint windows, their seams bit-exact),
+the T5 encoder stack (``RandomT5TextEncoder``) on the card against the
+CPU and a guided 25-step DPM sample through it, and the README's
+autoregressive model (``DiffusionAR``, one channel of 2^16 samples in 4
+splits, the 9-level widths): ``ar.sample(num_items=1, num_chunks=16,
+num_steps=64)`` and Adam steps at batch 8. Its items run the kernels'
+no-modulation branch, held against the plain version at its nine level
+shapes (L = 2^16 ... 2^5; bf16 and f32 forward, bf16 backward at batch 1
+and 8, 9 gradients), and the other samplers and a small AR model are held
+on the card against the CPU with host-made noise fed through the replaced
+``diffusion.noise.normal``.
 
     python3 chip_smoke.py
 
@@ -32,7 +46,12 @@ level's per-item bf16 device time times that level's items per pass (42 in
 all); ``host_ms`` is the host's time to enqueue the same calls. The
 backward row's ``train_batch_ms``, ``train_batch_bound_ms`` and
 ``train_batch_library_ms`` are the same sums at the train step's batch of
-8, and ``conv_sources`` names the headers of its two convolutions.
+8, and ``conv_sources`` names the headers of its two convolutions. The
+``nomod_*`` keys are the per-pass sums of the no-modulation rows at the AR
+levels (``nomod_train_batch_*`` at batch 8), and ``dpm_launches`` (1,050),
+``sde_launches`` (2,100), ``longform_launches`` (5,250),
+``t5_guided_dpm_launches`` (1,050 at batch 2), ``ar_sample_launches``
+(13,440 = 42 x 320 passes) and ``ar_train_launches`` count those paths'.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2, with the same bars.
@@ -102,6 +121,19 @@ LEVELS = [(8, 2**18), (32, 2**16), (64, 2**14), (128, 2**12), (256, 2**11),
 ITEMS = [1, 2, 2, 2, 2, 2, 2, 4, 4]
 LENGTH = 2**18
 NUM_STEPS = 50
+# The README's autoregressive model: one channel of 2^16 samples in 4
+# splits, the 9-level widths, so its levels run at L = 2^16 ... 2^5, and the
+# items take the kernels' no-modulation branch.
+AR_LENGTH, AR_SPLITS, AR_CHUNKS, AR_STEPS = 2**16, 4, 16, 64
+AR_LEVELS = [(c, AR_LENGTH // (LENGTH // length)) for c, length in LEVELS]
+# The fast sampler's steps, and long-form generation's geometry.
+DPM_STEPS = 25
+SDE_ETA = 0.3
+LONG = dict(length=2**19, window=2**18, overlap=2**16, num_steps=DPM_STEPS,
+            num_resamples=2)
+T5_CAPTIONS = ["a dog barking in the rain", "",
+               "a long caption of more than sixty-four bytes: rain, thunder "
+               "and a distant train", "pluie fine sur le toit, très douce"]
 GROUPS = 8
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -114,6 +146,8 @@ SMALL_CFG = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
 SMALL_COND = dict(cross_attentions=[0, 0, 1], context_channels=[0, 0, 5],
                   use_embedding_cfg=True, embedding_max_length=8,
                   embedding_features=32)
+SMALL_AR = dict(channels=[8, 32, 64], factors=[1, 4, 2], items=[1, 2, 1],
+                attentions=[0, 0, 1], attention_heads=4, attention_features=8)
 
 
 def emit(obj) -> None:
@@ -176,11 +210,11 @@ def item_inputs(c, length, dtype, gen, batch=1):
 
 
 def gradient_errors(got, want, channels, tol, where):
-    """Each of the 13 gradients against its plain counterpart, relative to
-    the plain one's largest value; raises on a miss. Returns the largest
-    relative and absolute errors."""
+    """Each of the 13 gradients (9 without modulation) against its plain
+    counterpart, relative to the plain one's largest value; raises on a
+    miss. Returns the largest relative and absolute errors."""
     worst_rel, worst_abs = 0.0, 0.0
-    for i, name in enumerate(GRAD_NAMES):
+    for i, name in enumerate(GRAD_NAMES[:len(want)]):
         scale = want[i].float().abs().max().item()
         if name == "c1b" and channels == GROUPS:
             scale = want[8].float().abs().max().item()
@@ -194,14 +228,16 @@ def gradient_errors(got, want, channels, tol, where):
     return worst_rel, worst_abs
 
 
-def backward_bound(c, length, batch, dname):
+def backward_bound(c, length, batch, dname, use_modulation=True):
     """(bound_ms, bound_by, bytes, flops) of one item backward. The design
     keeps h, y and the statistics, so no conv is run again: two data
     gradients and two weight gradients. Bytes: g, x, h, y read and dx
     written, the two kernels read and their gradients written, the vectors
-    and their gradients."""
+    and their gradients. Without modulation y is not read, and the
+    modulation's vectors and gradients are not there."""
     esize = 2 if dname == "bfloat16" else 4
-    nbytes = (5 * batch * length * c + 12 * c * c + 22 * c) * esize
+    nbytes = ((5 * batch * length * c + 12 * c * c + 22 * c) if use_modulation
+              else (4 * batch * length * c + 12 * c * c + 10 * c)) * esize
     flops = 24 * c * c * length * batch
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_FLOPS[dname] * 1e3
@@ -209,24 +245,26 @@ def backward_bound(c, length, batch, dname):
             "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
 
 
-def item_at_train_batch(level, c, length, gen, flush):
+def item_at_train_batch(level, c, length, gen, flush, use_modulation=True,
+                        phase="kernel_backward_vs_plain"):
     """The item at the shape the train step gives it (batch TRAIN_BATCH,
     bf16), forward and backward through the kernels against the plain
     version under autograd: the output that the gradient-keeping forward
-    writes, all 13 gradients, a bit-identical second backward, the plans of
-    the backward's two convolutions, and the backward's device time beside
-    its bound and the library yardstick's."""
+    writes, all 13 gradients (9 without modulation), a bit-identical second
+    backward, the plans of the backward's two convolutions, and the
+    backward's device time beside its bound and the library yardstick's."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         backward_occupancy, fused_resnet_item, resnet_item_reference)
 
     dtype = torch.bfloat16
-    args = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)
+    n_args = 13 if use_modulation else 9
+    args = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)[:n_args]
     g = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)[0]
     results = []
     for fn in (fused_resnet_item, resnet_item_reference):
         leaves = [t.clone().requires_grad_(True) for t in args]
-        out = fn(*leaves, groups=GROUPS)
+        out = fn(*leaves, groups=GROUPS, use_modulation=use_modulation)
         backward = (lambda out=out, leaves=leaves: torch.autograd.grad(
             out, leaves, g, retain_graph=True))
         results.append((out.detach(), backward(), backward))
@@ -252,9 +290,9 @@ def item_at_train_batch(level, c, length, gen, flush):
     lib_args[7] = args[7].permute(2, 1, 0).contiguous()
     library_ms = cuda_ms(backward_of(library_item, lib_args,
                                      g.transpose(1, 2).contiguous()), flush)
-    bound_ms, bound_by, nbytes, flops = backward_bound(c, length, TRAIN_BATCH,
-                                                       "bfloat16")
-    row = dict(phase="kernel_backward_vs_plain",
+    bound_ms, bound_by, nbytes, flops = backward_bound(
+        c, length, TRAIN_BATCH, "bfloat16", use_modulation)
+    row = dict(phase=phase,
                kernel="fused_resnet_item.backward", level=level, channels=c,
                length=length, batch=TRAIN_BATCH, dtype="bfloat16",
                plans=backward_occupancy(c, length, TRAIN_BATCH),
@@ -268,10 +306,11 @@ def item_at_train_batch(level, c, length, gen, flush):
     return row
 
 
-def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb,
-                 mgs, mgb):
+def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods=None,
+                 modb=None, mgs=None, mgb=None):
     """The same item as cuDNN/PyTorch calls on [B, C, L] (yardstick only;
-    the port never calls this). Kernels arrive as [Cout, Cin, 3]."""
+    the port never calls this). Kernels arrive as [Cout, Cin, 3]. Without
+    the modulation's tensors the item ends at the residual."""
     import torch.nn.functional as F
 
     h = F.conv1d(F.silu(F.group_norm(x, GROUPS, gn1s, gn1b, 1e-5)), k1, c1b,
@@ -279,6 +318,8 @@ def library_item(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb,
     h = F.conv1d(F.silu(F.group_norm(h, GROUPS, gn2s, gn2b, 1e-5)), k2, c2b,
                  padding=1)
     y = x + h
+    if mods is None:
+        return y
     return (y + F.group_norm(y, GROUPS, mgs, mgb, 1e-5) * (1 + mods[:, :, None])
             + modb[:, :, None])
 
@@ -290,19 +331,45 @@ def phase_kernel_vs_plain(flush):
     CTAs, resident CTAs per SM, wave fill) and checks that a second call
     gives the same bits. Returns the batch-1 rows and the batch-2 rows."""
     import torch
+
+    rows = forward_rows(flush, "kernel_vs_plain", LEVELS,
+                        ((torch.bfloat16, 1), (torch.float32, 1),
+                         (torch.bfloat16, GUIDED_BATCH)), seed=0)
+    return ([r for r in rows if r["batch"] == 1],
+            [r for r in rows if r["batch"] == GUIDED_BATCH])
+
+
+def phase_kernel_vs_plain_nomod(flush):
+    """The same check of the forward kernel's no-modulation branch (the
+    autoregressive model's items) at the AR levels' shapes, L = 2^16 ...
+    2^5, bf16 and f32 at batch 1. Returns the rows."""
+    import torch
+
+    return forward_rows(flush, "kernel_vs_plain_nomod", AR_LEVELS,
+                        ((torch.bfloat16, 1), (torch.float32, 1)), seed=5,
+                        use_modulation=False)
+
+
+def forward_rows(flush, phase, levels, runs, seed, use_modulation=True):
+    """Kernel vs plain version at each of ``levels`` (C, L) for each (dtype,
+    batch) of ``runs``, with the times of the kernel, the plain version and
+    the library yardstick beside the bound. A bf16 row also reports the
+    conv's plan and checks that a second call gives the same bits."""
+    import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         conv_occupancy, fused_resnet_item, resnet_item_reference)
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {1: [], GUIDED_BATCH: []}
-    for dtype, batch in ((torch.bfloat16, 1), (torch.float32, 1),
-                         (torch.bfloat16, GUIDED_BATCH)):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_args = 13 if use_modulation else 9
+    kw = dict(groups=GROUPS, use_modulation=use_modulation)
+    rows = []
+    for dtype, batch in runs:
         dname = str(dtype).split(".")[-1]
-        for level, (c, length) in enumerate(LEVELS):
-            args = item_inputs(c, length, dtype, gen, batch=batch)
+        for level, (c, length) in enumerate(levels):
+            args = item_inputs(c, length, dtype, gen, batch=batch)[:n_args]
             with torch.inference_mode():
-                out = fused_resnet_item(*args, groups=GROUPS)
-                ref = resnet_item_reference(*args, groups=GROUPS)
+                out = fused_resnet_item(*args, **kw)
+                ref = resnet_item_reference(*args, **kw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 ymax = ref.float().abs().max().item()
@@ -310,15 +377,15 @@ def phase_kernel_vs_plain(flush):
                          else 2.0 ** -5 * ymax)
                 if not (err <= bound):
                     raise AssertionError(
-                        f"level {level} {dname} batch {batch}: kernel vs "
-                        f"plain max-abs {err} > {bound}")
+                        f"{phase} level {level} {dname} batch {batch}: "
+                        f"kernel vs plain max-abs {err} > {bound}")
                 extra = {}
                 if dtype == torch.bfloat16:
-                    again = fused_resnet_item(*args, groups=GROUPS)
+                    again = fused_resnet_item(*args, **kw)
                     if not torch.equal(out, again):
                         raise AssertionError(
-                            f"level {level} bf16 batch {batch}: two calls on "
-                            "the same inputs differ")
+                            f"{phase} level {level} bf16 batch {batch}: two "
+                            "calls on the same inputs differ")
                     extra = dict(conv_plan=conv_occupancy(c, length, batch),
                                  bit_identical_rerun=True)
                 lib_args = list(args)
@@ -326,19 +393,21 @@ def phase_kernel_vs_plain(flush):
                 lib_args[3] = args[3].permute(2, 1, 0).contiguous()
                 lib_args[7] = args[7].permute(2, 1, 0).contiguous()
                 kernel_ms = cuda_ms(
-                    lambda: fused_resnet_item(*args, groups=GROUPS), flush)
+                    lambda: fused_resnet_item(*args, **kw), flush)
                 kernel_host_ms = host_ms(
-                    lambda: fused_resnet_item(*args, groups=GROUPS))
+                    lambda: fused_resnet_item(*args, **kw))
                 plain_ms = cuda_ms(
-                    lambda: resnet_item_reference(*args, groups=GROUPS), flush)
+                    lambda: resnet_item_reference(*args, **kw), flush)
                 library_ms = cuda_ms(lambda: library_item(*lib_args), flush)
             esize = args[0].element_size()
-            nbytes = (2 * batch * length * c + 2 * 3 * c * c + 8 * c
-                      + 2 * batch * c) * esize
+            nbytes = ((2 * batch * length * c + 2 * 3 * c * c + 8 * c
+                       + 2 * batch * c) if use_modulation
+                      else (2 * batch * length * c + 2 * 3 * c * c
+                            + 6 * c)) * esize
             flops = 12 * c * c * length * batch
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             flops_ms = flops / PEAK_FLOPS[dname] * 1e3
-            row = dict(phase="kernel_vs_plain", kernel="fused_resnet_item",
+            row = dict(phase=phase, kernel="fused_resnet_item",
                        level=level, channels=c, length=length, batch=batch,
                        **extra, dtype=dname, max_abs_err=err, tolerance=bound,
                        max_abs_out=ymax, kernel_ms=kernel_ms,
@@ -347,9 +416,11 @@ def phase_kernel_vs_plain(flush):
                        bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                        bytes=nbytes, flops=flops,
                        items_per_forward=2 * ITEMS[level])
+            if not use_modulation:
+                row["use_modulation"] = False
             emit(row)
-            rows[batch].append(row)
-    return rows[1], rows[GUIDED_BATCH]
+            rows.append(row)
+    return rows
 
 
 def backward_of(fn, inputs, grad_out):
@@ -372,17 +443,40 @@ def phase_kernel_backward_vs_plain(flush):
     each level at the train step's batch in bf16, forward and backward, with
     its time and bound. Returns the batch-1 rows and the batch-8 rows."""
     import torch
+
+    return backward_rows(flush, "kernel_backward_vs_plain", LEVELS,
+                         (torch.bfloat16, torch.float32), seed=3)
+
+
+def phase_kernel_backward_vs_plain_nomod(flush):
+    """The same check of the backward kernels' no-modulation branch (9
+    gradients; the autoregressive model's train step) at the AR levels'
+    shapes, bf16 at batch 1 and at the train step's batch of 8. Returns the
+    batch-1 rows and the batch-8 rows."""
+    import torch
+
+    return backward_rows(flush, "kernel_backward_vs_plain_nomod", AR_LEVELS,
+                         (torch.bfloat16,), seed=7, use_modulation=False)
+
+
+def backward_rows(flush, phase, levels, dtypes, seed, use_modulation=True):
+    """Backward kernels vs autograd of the plain version at each of
+    ``levels`` for each of ``dtypes`` at batch 1, then each level in bf16
+    at the train step's batch (:func:`item_at_train_batch`)."""
+    import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         backward_occupancy, fused_resnet_item, resnet_item_reference,
         wgrad_plan)
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_args = 13 if use_modulation else 9
+    kw = dict(groups=GROUPS, use_modulation=use_modulation)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         dname = str(dtype).split(".")[-1]
         tol = 1e-4 if dtype == torch.float32 else 2e-2
-        for level, (c, length) in enumerate(LEVELS):
-            args = item_inputs(c, length, dtype, gen)
+        for level, (c, length) in enumerate(levels):
+            args = item_inputs(c, length, dtype, gen)[:n_args]
             g = item_inputs(c, length, dtype, gen)[0]
 
             lib_args = list(args)
@@ -390,23 +484,22 @@ def phase_kernel_backward_vs_plain(flush):
             lib_args[3] = args[3].permute(2, 1, 0).contiguous()
             lib_args[7] = args[7].permute(2, 1, 0).contiguous()
             kernel_bwd = backward_of(
-                functools.partial(fused_resnet_item, groups=GROUPS), args, g)
+                functools.partial(fused_resnet_item, **kw), args, g)
             plain_bwd = backward_of(
-                functools.partial(resnet_item_reference, groups=GROUPS), args,
-                g)
+                functools.partial(resnet_item_reference, **kw), args, g)
             library_bwd = backward_of(library_item, lib_args,
                                       g.transpose(1, 2).contiguous())
             got, want = kernel_bwd(), plain_bwd()
             torch.cuda.synchronize()
             worst_rel, worst_abs = gradient_errors(
-                got, want, c, tol, f"level {level} {dname}")
+                got, want, c, tol, f"{phase} level {level} {dname}")
             extra = {}
             if dtype == torch.bfloat16:
                 again = kernel_bwd()
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    raise AssertionError(f"level {level} bf16: two backwards "
-                                         "on the same graph differ")
+                    raise AssertionError(f"{phase} level {level} bf16: two "
+                                         "backwards on the same graph differ")
                 extra = dict(plans=backward_occupancy(c, length),
                              bit_identical_rerun=True)
                 # The plan takes the card's residency from the occupancy
@@ -422,9 +515,9 @@ def phase_kernel_backward_vs_plain(flush):
             kernel_host_ms = host_ms(kernel_bwd)
             plain_ms = cuda_ms(plain_bwd, flush)
             library_ms = cuda_ms(library_bwd, flush)
-            bound_ms, bound_by, nbytes, flops = backward_bound(c, length, 1,
-                                                               dname)
-            row = dict(phase="kernel_backward_vs_plain",
+            bound_ms, bound_by, nbytes, flops = backward_bound(
+                c, length, 1, dname, use_modulation)
+            row = dict(phase=phase,
                        kernel="fused_resnet_item.backward", level=level,
                        channels=c, length=length, batch=1, dtype=dname,
                        **extra, max_rel_err=worst_rel, tolerance=tol,
@@ -433,11 +526,14 @@ def phase_kernel_backward_vs_plain(flush):
                        bound_ms=bound_ms, bound_by=bound_by,
                        bytes=nbytes, flops=flops,
                        items_per_forward=2 * ITEMS[level])
+            if not use_modulation:
+                row["gradients"] = len(got)
             emit(row)
             rows.append(row)
             del kernel_bwd, plain_bwd, library_bwd, got, want
-    train_rows = [item_at_train_batch(level, c, length, gen, flush)
-                  for level, (c, length) in enumerate(LEVELS)]
+    train_rows = [item_at_train_batch(level, c, length, gen, flush,
+                                      use_modulation, phase)
+                  for level, (c, length) in enumerate(levels)]
     return rows, train_rows
 
 
@@ -598,13 +694,15 @@ def phase_train_small():
         raise AssertionError(f"train_small: gradient rel err {worst}")
 
 
-def sample_runs(model, noise, **kw):
-    """A 2-step warm-up, then three ``NUM_STEPS`` samples through
-    ``DiffusionModel.sample``: (the first's output, the item launches counted
-    over the first alone, ms per step of each, peak device memory)."""
+def sample_runs(model, noise, steps=None, **kw):
+    """A 2-step warm-up, then three samples of ``steps`` steps (default
+    ``NUM_STEPS``) through ``DiffusionModel.sample``: (the first's output,
+    the item launches counted over the first alone, ms per step of each,
+    peak device memory)."""
     import torch
     from audio_diffusion_torch.ops.kernels import resnet
 
+    steps = steps or NUM_STEPS
     model.sample(noise, num_steps=2, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -613,12 +711,317 @@ def sample_runs(model, noise, **kw):
         if run == 0:
             resnet.fused_resnet_item.launches = 0
         t0 = time.perf_counter()
-        outs.append(model.sample(noise, num_steps=NUM_STEPS, **kw))
+        outs.append(model.sample(noise, num_steps=steps, **kw))
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+        step_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         if run == 0:
             launches = resnet.fused_resnet_item.launches
     return outs[0], launches, step_ms, torch.cuda.max_memory_allocated()
+
+
+def host_noise(seed):
+    """A stand-in for ``diffusion.noise.normal`` that draws on the host from
+    one seeded CPU generator and moves the draw to the asked device, so a
+    run on the card and one on the CPU see the same noise."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(generator, shape, dtype, device):
+        return torch.randn(tuple(shape), generator=gen).to(dtype=dtype,
+                                                           device=device)
+    return normal
+
+
+def phase_sampler_small_reference():
+    """The other samplers on a small net, card (kernel path, f32) vs the
+    same weights on the CPU: DPM-Solver++ with and without encoder reuse,
+    the SDE sampler, the RePaint inpainter, and a small autoregressive
+    model's sample and loss (its items without modulation). Every draw is
+    host-made noise fed through the replaced noise helper."""
+    import torch
+    from audio_diffusion_torch import (DiffusionAR, DiffusionModel,
+                                       DPMSampler, SDESampler, UNetV0,
+                                       VInpainter)
+    from audio_diffusion_torch.diffusion import noise as noise_module
+    from audio_diffusion_torch.diffusion.vdiffusion import arv_loss
+
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **SMALL_CFG)
+    fill_zero_params(cpu)
+    gpu = DiffusionModel(net_t=UNetV0, **SMALL_CFG)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    ar_cpu = DiffusionAR(net_t=UNetV0, in_channels=1, length=256,
+                         num_splits=4, device="cpu", seed=2, **SMALL_AR)
+    fill_zero_params(ar_cpu)
+    ar_gpu = DiffusionAR(net_t=UNetV0, in_channels=1, length=256,
+                         num_splits=4, **SMALL_AR)
+    ar_gpu.net.module.load_state_dict(ar_cpu.net.module.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(1, 2, 256, generator=gen)
+    source = torch.randn(1, 2, 256, generator=gen)
+    mask = torch.zeros(1, 2, 256, dtype=torch.bool)
+    mask[..., :64] = True
+    audio = torch.randn(2, 1, 256, generator=gen)
+    sigmas = torch.rand(2, 1, 4, generator=gen)
+    eps = torch.randn(2, 1, 256, generator=gen)
+
+    def run(model, ar, name):
+        dev = model.device
+        params = model.params
+        with torch.inference_mode():
+            if name.startswith("dpm"):
+                return DPMSampler(model.net).sample(
+                    params, x.to(dev), 8,
+                    encoder_reuse=2 if name.endswith("reuse_2") else 1)
+            if name == "sde":
+                return SDESampler(model.net, eta=0.5).sample(
+                    params, model.generator, x.to(dev), 8)
+            if name == "inpaint":
+                return VInpainter(model.net).sample(
+                    params, model.generator, source.to(dev), mask.to(dev), 4,
+                    2)
+            if name == "ar_sample":
+                return ar.sample(num_items=1, num_chunks=6, num_steps=8)
+        return arv_loss(ar.net, ar.params, audio.to(dev), sigmas.to(dev),
+                        eps.to(dev)).detach()[None]
+
+    errs = {}
+    for name in ("dpm", "dpm_reuse_2", "sde", "inpaint", "ar_sample",
+                 "ar_loss"):
+        outs = []
+        for model, ar in ((cpu, ar_cpu), (gpu, ar_gpu)):
+            with mock.patch.object(noise_module, "normal", host_noise(9)):
+                outs.append(run(model, ar, name).cpu())
+        want, got = outs
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"sampler small reference {name}: shape "
+                                 f"{tuple(got.shape)} or non-finite values")
+        errs[name] = (got - want).abs().max().item()
+    emit(dict(phase="sampler_small_reference", dtype="float32",
+              dpm_steps=8, sde_eta=0.5, inpaint_resamples=2,
+              max_abs_err=errs, tolerance=1e-3))
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f"sampler small reference: max-abs {errs}")
+
+
+def phase_sample_dpm(model, noise):
+    """The flagship with ``DPMSampler``: a 25-step sample (the median of
+    three runs). Returns the launches of the first run."""
+    import torch
+    from audio_diffusion_torch import DPMSampler
+
+    model.sampler = DPMSampler(model.net)
+    expected = 2 * sum(ITEMS) * DPM_STEPS
+    out, launches, step_ms, peak = sample_runs(model, noise, steps=DPM_STEPS)
+    emit(dict(phase="sample_dpm", steps=DPM_STEPS, length=LENGTH, batch=1,
+              dtype="bfloat16", ms_per_step=sorted(step_ms)[1],
+              ms_per_step_runs=step_ms, item_launches=launches,
+              expected_launches=expected, peak_memory_bytes=peak,
+              out_shape=list(out.shape), out_std=out.float().std().item()))
+    if launches != expected:
+        raise AssertionError(f"sample_dpm: {launches} item launches, "
+                             f"expected {expected}")
+    if out.shape != noise.shape or not torch.isfinite(out).all():
+        raise AssertionError("sample_dpm: bad shape or non-finite values")
+    return launches
+
+
+def phase_sample_sde(model, noise, vsample):
+    """The flagship with ``SDESampler(eta=0.3)``: 50-step samples (the
+    median of three; fresh noise from the model's generator each step).
+    Then ``eta=0`` from the ``sample`` phase's noise, which must give
+    ``vsample``, that phase's VSampler output, bit for bit. Returns the
+    launches of the first."""
+    import torch
+    from audio_diffusion_torch import SDESampler
+
+    model.sampler = SDESampler(model.net, eta=SDE_ETA)
+    out, launches, step_ms, peak = sample_runs(model, noise)
+    model.sampler = SDESampler(model.net, eta=0.0)
+    same = torch.equal(model.sample(noise, num_steps=NUM_STEPS), vsample)
+    expected = 2 * sum(ITEMS) * NUM_STEPS
+    rel = ((out.float() - vsample.float()).norm()
+           / vsample.float().norm()).item()
+    emit(dict(phase="sample_sde", steps=NUM_STEPS, eta=SDE_ETA, length=LENGTH,
+              batch=1, dtype="bfloat16", ms_per_step=sorted(step_ms)[1],
+              ms_per_step_runs=step_ms, item_launches=launches, expected_launches=expected,
+              peak_memory_bytes=peak, out_shape=list(out.shape),
+              out_std=out.float().std().item(),
+              rel_l2_vs_vsampler=rel, eta0_equals_vsampler=same))
+    if launches != expected:
+        raise AssertionError(f"sample_sde: {launches} item launches, "
+                             f"expected {expected}")
+    if out.shape != noise.shape or not torch.isfinite(out).all():
+        raise AssertionError("sample_sde: bad shape or non-finite values")
+    if not same:
+        raise AssertionError("sample_sde: eta=0 is not the VSampler sample")
+    return launches
+
+
+def phase_longform(model):
+    """``generate_long`` on the flagship with the DPM sampler: one 25-step
+    sample, then two RePaint continuation windows (25 steps, 2 resamples).
+    Each window's known region must come out as the previous tail bit for
+    bit (σ = 0 at the last step: α = 1, β = 0). Returns the launches."""
+    import torch
+    from audio_diffusion_torch import DPMSampler, VInpainter, generate_long
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    model.sampler = DPMSampler(model.net)
+    overlap, seams = LONG["overlap"], []
+    inpaint = VInpainter.sample
+
+    def spy(self, params, generator, source, mask, *args, **kwargs):
+        out = inpaint(self, params, generator, source, mask, *args, **kwargs)
+        seams.append(torch.equal(out[..., :overlap], source[..., :overlap]))
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resnet.fused_resnet_item.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(VInpainter, "sample", spy):
+        audio = generate_long(model, generator=gen, **LONG)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = resnet.fused_resnet_item.launches
+    windows = -(-(LONG["length"] - LONG["window"])
+                // (LONG["window"] - overlap))
+    expected = 2 * sum(ITEMS) * DPM_STEPS * (1 + windows
+                                             * LONG["num_resamples"])
+    emit(dict(phase="longform", **LONG, sampler="DPMSampler", batch=1,
+              dtype="bfloat16", seconds=seconds,
+              continuation_windows=len(seams), seams_bit_exact=seams,
+              item_launches=launches, expected_launches=expected,
+              peak_memory_bytes=torch.cuda.max_memory_allocated(),
+              out_shape=list(audio.shape),
+              out_std=audio.float().std().item()))
+    if launches != expected:
+        raise AssertionError(f"longform: {launches} item launches, expected "
+                             f"{expected}")
+    if (tuple(audio.shape) != (1, 2, LONG["length"])
+            or not torch.isfinite(audio).all()):
+        raise AssertionError("longform: bad shape or non-finite values")
+    if len(seams) != windows or not all(seams):
+        raise AssertionError(f"longform: seams {seams}, expected {windows} "
+                             "bit-exact")
+    return launches
+
+
+def build_ar_model(torch, seed: int = 0):
+    """The README's autoregressive model at the 9-level widths, with
+    self-attention at levels 5-8 (8 heads x 64), bf16 compute."""
+    from audio_diffusion_torch import DiffusionAR, UNetV0, presets
+
+    model = DiffusionAR(net_t=UNetV0, in_channels=1, length=AR_LENGTH,
+                        num_splits=AR_SPLITS, **presets._NET_9LEVEL,
+                        attentions=presets.UNCONDITIONAL_48K["attentions"],
+                        attention_heads=8, attention_features=64,
+                        dtype=torch.bfloat16, seed=seed)
+    fill_zero_params(model)
+    return model
+
+
+def phase_ar_sample(model):
+    """``ar.sample(num_items=1, num_chunks=16, num_steps=64)``: the start
+    window (64 passes) and 16 shifts of the σ ladder (16 passes each), 320
+    passes of the net in all. Returns the launches."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    passes = AR_STEPS + AR_CHUNKS * AR_STEPS // AR_SPLITS
+    model.sample(num_items=1, num_chunks=AR_SPLITS, num_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resnet.fused_resnet_item.launches = 0
+    t0 = time.perf_counter()
+    out = model.sample(num_items=1, num_chunks=AR_CHUNKS, num_steps=AR_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = resnet.fused_resnet_item.launches
+    expected = 2 * sum(ITEMS) * passes
+    shape = (1, 1, AR_CHUNKS * AR_LENGTH // AR_SPLITS)
+    emit(dict(phase="ar_sample", num_chunks=AR_CHUNKS, num_steps=AR_STEPS,
+              num_splits=AR_SPLITS, length=AR_LENGTH, batch=1,
+              dtype="bfloat16", net_passes=passes, seconds=seconds,
+              ms_per_pass=seconds * 1e3 / passes, item_launches=launches,
+              expected_launches=expected,
+              peak_memory_bytes=torch.cuda.max_memory_allocated(),
+              out_shape=list(out.shape), out_dtype=str(out.dtype),
+              out_std=out.float().std().item()))
+    if launches != expected:
+        raise AssertionError(f"ar_sample: {launches} item launches, "
+                             f"expected {expected}")
+    if tuple(out.shape) != shape or not torch.isfinite(out).all():
+        raise AssertionError("ar_sample: bad shape or non-finite values")
+    return launches
+
+
+def phase_t5_text(model, noise):
+    """The port's T5 encoder stack on the card against the same weights on
+    the CPU (one seed gives both), f32, on captions that include an empty
+    one and one longer than its 64 bytes, timed as the median of five
+    encodes after the first (each with its copy back to the host); then
+    the text-conditional flagship with that encoder and ``DPMSampler``:
+    guided 25-step samples of one caption (the item at batch 2; the median
+    of three), which must differ from the unguided one. Returns the first
+    guided sample's launches."""
+    import numpy as np
+    import torch
+    from audio_diffusion_torch import DPMSampler
+    from audio_diffusion_torch.ops.text import RandomT5TextEncoder
+
+    card = RandomT5TextEncoder()
+    host = RandomT5TextEncoder(device="cpu")
+    got = card(T5_CAPTIONS)
+    encode_runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        card(T5_CAPTIONS)
+        encode_runs.append((time.perf_counter() - t0) * 1e3)
+    want = host(T5_CAPTIONS)
+    pad = card._tokenize(T5_CAPTIONS) == 0
+    ymax = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    padded_zero = bool((got[pad] == 0).all())
+
+    model.net.text_encoder = card
+    model.sampler = DPMSampler(model.net)
+    out, launches, step_ms, peak = sample_runs(
+        model, noise, steps=DPM_STEPS, text=T5_CAPTIONS[:1],
+        embedding_scale=GUIDANCE)
+    unguided = model.sample(noise, num_steps=DPM_STEPS, text=T5_CAPTIONS[:1])
+    rel = ((out.float() - unguided.float()).norm()
+           / unguided.float().norm()).item()
+    expected = 2 * sum(ITEMS) * DPM_STEPS
+    emit(dict(phase="t5_text", encoder=dict(
+                  max_length=card.max_length, features=card.features,
+                  layers=len(card.stack.encoder.block),
+                  heads=card.stack.num_heads, captions=len(T5_CAPTIONS),
+                  max_abs_err=err, tolerance=1e-4 * ymax, max_abs_out=ymax,
+                  padded_rows_zero=padded_zero, dtype=str(got.dtype),
+                  encode_ms=sorted(encode_runs)[2],
+                  encode_ms_runs=encode_runs),
+              steps=DPM_STEPS, sampler="DPMSampler", embedding_scale=GUIDANCE,
+              length=LENGTH, batch=1, item_batch=GUIDED_BATCH,
+              dtype="bfloat16", ms_per_step=sorted(step_ms)[1],
+              ms_per_step_runs=step_ms, item_launches=launches,
+              expected_launches=expected, peak_memory_bytes=peak,
+              out_shape=list(out.shape), rel_l2_guided_vs_unguided=rel))
+    if not (err <= 1e-4 * ymax) or not padded_zero:
+        raise AssertionError(f"t5_text: encoder card vs CPU max-abs {err} "
+                             f"(bar {1e-4 * ymax}), padded rows zero: "
+                             f"{padded_zero}")
+    if launches != expected:
+        raise AssertionError(f"t5_text: {launches} item launches, expected "
+                             f"{expected}")
+    if out.shape != noise.shape or not torch.isfinite(out).all():
+        raise AssertionError("t5_text: bad shape or non-finite values")
+    if not rel > 1e-3:
+        raise AssertionError(f"t5_text: the guided output is the unguided "
+                             f"one (relative L2 {rel})")
+    return launches
 
 
 def build_text_model(torch, seed: int = 0):
@@ -806,11 +1209,12 @@ def phase_profile(name, run, **extra):
               host_own_ms={k: v * 1e3 for k, v in host}))
 
 
-def phase_train(model, phase="train", **cond):
-    """A training main path: Adam steps of a flagship at full width and
-    depth, bf16 compute over float32 master parameters, 2^18-sample stereo,
-    through ``DiffusionModel.loss`` and ``make_train_step``, with ``cond``
-    (the conditioning kwargs) on every step. Where the net has CFG, the
+def phase_train(model, phase="train", channels=2, length=LENGTH, **cond):
+    """A training main path: Adam steps of a model at full width and depth,
+    bf16 compute over float32 master parameters, on a batch of ``channels``
+    x ``length`` (2^18-sample stereo for the flagships), through
+    ``DiffusionModel.loss`` and ``make_train_step``, with ``cond`` (the
+    conditioning kwargs) on every step. Where the net has CFG, the
     embedding mask's draws are counted: ``fixed_embedding`` moves exactly
     when a row was masked in an Adam step. Returns the item launches
     (forward, backward) counted over the timed steps."""
@@ -822,7 +1226,7 @@ def phase_train(model, phase="train", **cond):
     item = resnet.fused_resnet_item
     items_per_pass = 2 * sum(ITEMS)
     gen = torch.Generator(device=model.device).manual_seed(4)
-    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device=model.device,
+    batch = torch.randn(TRAIN_BATCH, channels, length, device=model.device,
                         generator=gen).clamp_(-1.0, 1.0)
     leaves = list(model.params.values())
     masks = []
@@ -877,7 +1281,8 @@ def phase_train(model, phase="train", **cond):
     extra = dict(embedding_mask_proba=cond.get("embedding_mask_proba"),
                  masked_rows_per_step=masked,
                  masked_rows_first_gradient=masked_first) if masks else {}
-    emit(dict(phase=phase, batch=TRAIN_BATCH, length=LENGTH,
+    emit(dict(phase=phase, batch=TRAIN_BATCH, channels=channels,
+              length=length,
               dtype="bfloat16", optimizer="Adam(lr=1e-4)", steps=TRAIN_STEPS,
               ms_per_step=median, ms_per_step_runs=step_ms,
               samples_per_s=TRAIN_BATCH / median * 1e3,
@@ -941,11 +1346,15 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     rows, guided_rows = phase_kernel_vs_plain(flush)
+    nomod_rows = phase_kernel_vs_plain_nomod(flush)
     bwd_rows, bwd_train_rows = phase_kernel_backward_vs_plain(flush)
+    nomod_bwd_rows, nomod_bwd_train_rows = (
+        phase_kernel_backward_vs_plain_nomod(flush))
     del flush
     phase_small_reference()
     phase_train_small()
     phase_cond_small_reference()
+    phase_sampler_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
@@ -971,6 +1380,13 @@ def main() -> int:
     phase_profile("profile", lambda: model.sample(noise, num_steps=2),
                   steps=2)
 
+    # The other samplers on the same net, each with its own counts: DPM,
+    # SDE (eta = 0 against the VSampler sample above), long-form.
+    dpm_launches = phase_sample_dpm(model, noise)
+    sde_launches = phase_sample_sde(model, noise, out)
+    long_launches = phase_longform(model)
+    del out
+
     # The training main path: counts set to 0 inside, just before its steps.
     train_launches = phase_train(model)
     del model
@@ -978,7 +1394,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The text-conditional paths (guided sample, with and without encoder
-    # reuse; training with embedding dropout), each with its own counts.
+    # reuse; training with embedding dropout), each with its own counts;
+    # then the T5 encoder stack and a guided DPM sample through it.
     model = build_text_model(torch)
     text_launches = phase_sample_text(model, noise)
     phase_attention_profile(model, noise)
@@ -987,6 +1404,21 @@ def main() -> int:
     text_train_launches = phase_train(model, "train_text",
                                       embedding=embedding,
                                       embedding_mask_proba=0.1)
+    t5_launches = phase_t5_text(model, noise)
+    del model, embedding
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The autoregressive model: its sample and its train step, whose items
+    # run the no-modulation branch.
+    model = build_ar_model(torch)
+    ar_launches = phase_ar_sample(model)
+    phase_profile("ar_sample_profile",
+                  lambda: model.sample(num_items=1, num_chunks=AR_SPLITS + 1,
+                                       num_steps=AR_SPLITS), passes=9)
+    ar_train_launches = phase_train(model, "ar_train", channels=1,
+                                    length=AR_LENGTH)
+    del model
 
     # Per pass of the net at batch 1: each level's per-item bf16 time times
     # its items per pass.
@@ -1009,7 +1441,16 @@ def main() -> int:
                 "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
                 "library_ms": per_pass("library_ms")}
 
+    def train_sums(train_rows, prefix):
+        return {f"{prefix}_{key}": sum(r[key] * r["items_per_forward"]
+                                       for r in train_rows)
+                for key in ("kernel_ms", "library_ms", "bound_ms")}
+
     guided = summary("", "", "", guided_rows)
+    nomod = summary("", "", "", nomod_rows)
+    nomod_bwd = summary("", "", "", nomod_bwd_rows)
+    per_pass_keys = ("ms", "plain_ms", "bound_ms", "library_ms",
+                     "max_abs_err")
     print(smi)
     emit({"kernels": [
         summary("fused_resnet_item", KERNEL_SOURCE, REPLACES, rows,
@@ -1017,14 +1458,19 @@ def main() -> int:
                 guided_launches=text_launches[0],
                 reuse_launches=text_launches[1],
                 text_train_launches=text_train_launches[0],
+                dpm_launches=dpm_launches, sde_launches=sde_launches,
+                longform_launches=long_launches,
+                t5_guided_dpm_launches=t5_launches,
+                ar_sample_launches=ar_launches,
+                ar_train_launches=ar_train_launches[0],
                 conv_source=CONV_SOURCE,
-                **{f"guided_batch_{k}": guided[k]
-                   for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                             "max_abs_err")}),
+                **{f"guided_batch_{k}": guided[k] for k in per_pass_keys},
+                **{f"nomod_{k}": nomod[k] for k in per_pass_keys}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,
                 text_train_launches=text_train_launches[1],
+                ar_train_launches=ar_train_launches[1],
                 conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
                 train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
                                    for r in bwd_train_rows),
@@ -1033,7 +1479,9 @@ def main() -> int:
                     for r in bwd_train_rows),
                 train_batch_bound_ms=sum(
                     r["bound_ms"] * r["items_per_forward"]
-                    for r in bwd_train_rows))]})
+                    for r in bwd_train_rows),
+                **{f"nomod_{k}": nomod_bwd[k] for k in per_pass_keys},
+                **train_sums(nomod_bwd_train_rows, "nomod_train_batch"))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -174,6 +174,40 @@ def test_bf16_backward_plans_match_plain_autograd(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channels,length,batch", [
+    (1024, 64, 1), (1024, 32, 1), (1024, 32, 8), (8, 2**16, 1)])
+def test_bf16_no_modulation_short_levels(cuda_device, channels, length,
+                                         batch):
+    """The no-modulation branch (the autoregressive model's items) at its
+    shortest levels, fewer rows than one conv tile and than one weight-
+    gradient chunk, and at its widest: the forward at two ulps and the 9
+    gradients at 2e-2 of the plain version's, each bit-identical on a
+    second call."""
+    args = item_inputs(channels, length, batch, channels, torch.bfloat16,
+                       cuda_device)
+    g = item_inputs(channels, length, batch, channels + 1, torch.bfloat16,
+                    cuda_device)[0]
+    kw = dict(groups=GROUPS, use_modulation=False)
+    out, again = (fused_resnet_item(*args[:9], **kw) for _ in range(2))
+    ref = resnet_item_reference(*args[:9], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * ref.float().abs().max().item(), err
+    got = item_gradients(fused_resnet_item, args, g, False)
+    second = item_gradients(fused_resnet_item, args, g, False)
+    want = item_gradients(resnet_item_reference, args, g, False)
+    assert set(got) == set(NAMES[:9])
+    for name, grad in got.items():
+        assert torch.equal(grad, second[name]), name
+        scale = want[name].float().abs().max().item()
+        if name == "c1b" and channels == GROUPS:
+            scale = want["c2b"].float().abs().max().item()
+        err = (grad.float() - want[name].float()).abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
 def test_backward_kernel_matches_finite_differences(cuda_device):
     """A gradcheck in float32 at a tiny shape: along a random direction v of
     each input (scaled to the input's own spread), sum(grad · v) against the

@@ -15,7 +15,8 @@ import torch
 
 from audio_diffusion_tpu import DiffusionModel as JaxDiffusionModel
 from audio_diffusion_tpu import UNetV0 as JaxUNetV0
-from audio_diffusion_torch import (DiffusionModel, LinearSchedule, UNetV0,
+from audio_diffusion_torch import (DiffusionModel, DPMSampler,
+                                   LinearSchedule, SDESampler, UNetV0,
                                    UniformLambdaSchedule, VSampler,
                                    params_from_jax)
 from audio_diffusion_torch.diffusion import alpha_beta
@@ -103,6 +104,22 @@ def test_sampler_routing_and_unported_options():
                            diffusion_sigma_distribution=None, **CFG)
     assert (model.diffusion.sigma_distribution.vmin,
             model.diffusion.sigma_distribution.vmax) == (0.0, 1.0)
+    # sampler_t= and sampler_* kwargs route the other samplers: DPM on its
+    # uniform-λ default schedule (encoder reuse too), SDE with its eta.
+    model = DiffusionModel(net_t=UNetV0, device="cpu", sampler_t=DPMSampler,
+                           **CFG)
+    assert isinstance(model.sampler, DPMSampler)
+    assert isinstance(model.sampler.schedule, UniformLambdaSchedule)
+    out = model.sample(noise, num_steps=4, encoder_reuse=2)
+    assert out.shape == noise.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="divisible by encoder_reuse"):
+        model.sample(noise, num_steps=3, encoder_reuse=2)
+    model = DiffusionModel(net_t=UNetV0, device="cpu", sampler_t=SDESampler,
+                           sampler_eta=0.0, **CFG)
+    assert isinstance(model.sampler, SDESampler) and model.sampler.eta == 0.0
+    assert isinstance(model.sampler.schedule, LinearSchedule)
+    out = model.sample(noise, num_steps=3)
+    assert out.shape == noise.shape and torch.isfinite(out).all()
 
 
 def test_unroll_is_accepted_and_ignored():
