@@ -10,27 +10,38 @@ weights between the two packages; the other samplers (``DPMSampler``,
 ``SDESampler``), RePaint inpainting (``VInpainter``) and long-form
 generation (``generate_long``); the autoregressive model (``DiffusionAR``
 with ``ARVDiffusion`` and ``ARVSampler``), whose items run the kernels'
-no-modulation branch; and the T5 encoder stack behind
-``ops.text.RandomT5TextEncoder``.
+no-modulation branch; the T5 encoder stack behind
+``ops.text.RandomT5TextEncoder``; and the DSP front end (``dsp``: sinc
+resampling, STFT, Griffin-Lim, ``MelSpectrogram``), the multi-resolution
+STFT loss, the net plugins ``LTPlugin`` and ``AppendChannelsPlugin`` and
+the task models ``DiffusionUpsampler``, ``DiffusionVocoder`` and
+``DiffusionAE`` (with ``MelEncoder1d``, whose items run the kernels'
+no-modulation branch).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
-from . import presets
+from . import dsp, presets
 from .convert import params_from_jax, params_to_jax
 from .diffusion import (ARVDiffusion, ARVSampler, Diffusion, Distribution,
                         DPMSampler, Inpainter, LinearSchedule, Sampler,
                         Schedule, SDESampler, UniformDistribution,
                         UniformLambdaSchedule, VDiffusion, VInpainter,
                         VSampler, mse_loss)
+from .dsp import MelSpectrogram
 from .longform import generate_long
-from .models import DiffusionAR, DiffusionModel
-from .ops import Net, UNetV0, XUNet, cast_inference_params
+from .losses import MultiResolutionSTFTLoss, multi_resolution_stft_loss
+from .models import (AdapterBase, DiffusionAE, DiffusionAR, DiffusionModel,
+                     DiffusionUpsampler, DiffusionVocoder, EncoderBase,
+                     MelEncoder1d, TanhBottleneck)
+from .ops import (AppendChannelsPlugin, LTPlugin, Net, UNetV0, XUNet,
+                  cast_inference_params)
 from .parallel import TrainState, make_train_step
 
 __version__ = "0.1.0"
 
 __all__ = [
     "presets",
+    "dsp",
     "params_from_jax",
     "params_to_jax",
     "DiffusionModel",
@@ -58,4 +69,16 @@ __all__ = [
     "Schedule",
     "LinearSchedule",
     "UniformLambdaSchedule",
+    "LTPlugin",
+    "AppendChannelsPlugin",
+    "MelSpectrogram",
+    "DiffusionAE",
+    "DiffusionUpsampler",
+    "DiffusionVocoder",
+    "EncoderBase",
+    "AdapterBase",
+    "MelEncoder1d",
+    "TanhBottleneck",
+    "MultiResolutionSTFTLoss",
+    "multi_resolution_stft_loss",
 ]

@@ -4,10 +4,19 @@
 dicts of arrays and returns the port's ``state_dict``, which
 ``net.module.load_state_dict(strict=True)`` accepts. ``params_to_jax(state)``
 is its inverse: the nested dict of float32 numpy arrays that the JAX
-``UNetV0`` takes. The tree is, from the outside in, time conditioning
+``UNetV0`` takes. The tree is, from the outside in, any of the net
+plugins' wrappers (``LTPlugin``: ``{"inner", "encode", "decode"}``;
+``AppendChannelsPlugin``: ``{"inner"}`` alone), time conditioning
 (``{"inner": ..., "sigma_embedding": ...}``), classifier-free guidance
 (``{"inner": {xunet...}, "fixed_embedding": ...}``) and the XUNet; a net
 without one of the wrappers lacks that level.
+
+A task model's whole tree, as the JAX model's ``params`` holds it
+(``{"net": ..., "encoder": {"params": ...}}`` for ``DiffusionAE`` with
+``MelEncoder1d``, ``{"net": ..., "to_flat": {"params": ...}}`` for
+``DiffusionVocoder``, ``{"net": ...}`` for the others), maps to the
+model's ``params``: the net's names as they are, the extras' as
+``"encoder/<name>"`` and ``"to_flat/<name>"``.
 
 Layouts: a flax Dense kernel [in, out] becomes an ``nn.Linear`` weight
 [out, in]; LayerNorm keeps ``scale``/``bias``; conv3 kernels [3, Cin, Cout],
@@ -132,26 +141,56 @@ class _Walk:
             self.child(node, key, prefix, self.item_stack)
         self.done(node, prefix)
 
-    def guided(self, node: dict, prefix: str) -> None:
-        """The XUNet, or the CFG wrapper around it."""
-        if "fixed_embedding" in node:
-            self.leaf(node, "fixed_embedding", prefix)
-            self.child(node, "inner", prefix, self.xunet)
-            self.done(node, prefix)
-        else:
-            self.xunet(node, prefix)
+    def kernel_and_bias(self, node: dict, prefix: str) -> None:
+        """A conv, patch or norm layer: its ``kernel`` or ``scale``, and its
+        ``bias`` if it has one."""
+        self.leaf(node, "scale" if "scale" in node else "kernel", prefix)
+        if "bias" in node:
+            self.leaf(node, "bias", prefix)
+        self.done(node, prefix)
 
-    def net(self, tree: dict) -> None:
-        if "sigma_embedding" in tree:
-            se = tree.pop("sigma_embedding")
-            self.leaf(se, "freqs", "sigma_embedding.")
-            self.child(se, "Dense_0", "sigma_embedding.", self.dense)
-            self.child(se, "Dense_1", "sigma_embedding.", self.dense)
-            self.done(se, "sigma_embedding.")
-            self.child(tree, "inner", "", self.guided)
-            self.done(tree, "")
-        else:
-            self.guided(tree, "")
+    def net(self, node: dict, prefix: str = "") -> None:
+        """The XUNet inside any of its wrappers."""
+        if "sigma_embedding" in node:  # time conditioning
+            where = prefix + "sigma_embedding."
+            se = self.take(node, "sigma_embedding", prefix)
+            self.leaf(se, "freqs", where)
+            self.child(se, "Dense_0", where, self.dense)
+            self.child(se, "Dense_1", where, self.dense)
+            self.done(se, where)
+        elif "fixed_embedding" in node:  # classifier-free guidance
+            self.leaf(node, "fixed_embedding", prefix)
+        elif "encode" in node or "decode" in node:  # LTPlugin
+            for key in ("encode", "decode"):
+                self.child(node, key, prefix, self.kernel_and_bias)
+        elif set(node) != {"inner"}:  # not AppendChannelsPlugin's wrapper
+            self.xunet(node, prefix)
+            return
+        self.child(node, "inner", prefix, self.net)
+        self.done(node, prefix)
+
+    def mel_encoder(self, node: dict, prefix: str) -> None:
+        """``MelEncoder1d``'s flax tree."""
+        for key in [k for k in node if re.fullmatch(r"ResnetItem_\d+", k)]:
+            self.child(node, key, prefix, self.resnet_item)
+        for key in [k for k in node if re.fullmatch(
+                r"(Conv1d|Downsample|GroupNorm)_\d+", k)]:
+            self.child(node, key, prefix, self.kernel_and_bias)
+        self.done(node, prefix)
+
+    def task(self, tree: dict) -> None:
+        """A task model's whole tree, or a net's alone."""
+        if "net" not in tree:
+            self.net(tree)
+            return
+        self.net(self.take(tree, "net", ""))
+        for key, fn in (("encoder", self.mel_encoder),
+                        ("to_flat", self.kernel_and_bias)):
+            if key in tree:
+                node = self.take(tree, key, "")
+                node = node["params"] if set(node) == {"params"} else node
+                fn(node, f"{key}/")
+        self.done(tree, "")
 
 
 def _plain(tree) -> dict:
@@ -163,13 +202,13 @@ def _plain(tree) -> dict:
 
 def _layout(tree: Mapping, caller: str) -> Dict[str, tuple]:
     walk = _Walk(caller)
-    walk.net(_plain(tree))
+    walk.task(_plain(tree))
     return walk.out
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, Tensor]:
     """JAX ``UNetV0`` parameter tree -> the port's state_dict (f32 CPU
-    tensors)."""
+    tensors); a task model's whole tree -> its ``params``."""
     out = {}
     for name, (a, is_dense) in _layout(tree, "params_from_jax").items():
         a = np.array(a, dtype=np.float32)
@@ -179,17 +218,24 @@ def params_from_jax(tree: Mapping) -> Dict[str, Tensor]:
 
 def params_to_jax(state: Mapping[str, Tensor]) -> dict:
     """The port's state_dict (or ``model.params``) -> the JAX ``UNetV0``
-    parameter tree, as nested dicts of float32 numpy arrays."""
-    tree: dict = {}
+    parameter tree, as nested dicts of float32 numpy arrays. A task model's
+    ``params`` with extras give the model's whole tree (``{"net": ...,
+    "encoder": {"params": ...}}``); the JAX model of a task without extras
+    holds ``{"net": params_to_jax(params)}``."""
+    net: dict = {}
+    extras: dict = {}
     for name, t in state.items():
+        extra, _, name = name.rpartition("/")
         *path, key = name.split(".")
         a = t.detach().to("cpu", torch.float32).numpy()
         if key == "weight":  # an nn.Linear: the flax kernel is [in, out]
             key, a = "kernel", a.T
-        node = tree
+        node = (extras.setdefault(extra, {}).setdefault("params", {})
+                if extra else net)
         for part in path:
             node = node.setdefault(part, {})
         node[key] = np.array(a, dtype=np.float32)
+    tree = {"net": net, **extras} if extras else net
     # The tree must be one that params_from_jax reads back name for name.
     names = set(_layout(tree, "params_to_jax"))
     if names != set(state):

@@ -11,20 +11,28 @@ parameter dict, for ``parallel.make_train_step`` and custom loops.
 ``text=[...]`` is encoded on the host once per ``model(...)`` or
 ``model.sample(...)`` call into ``embedding=`` by the net's text encoder;
 ``loss`` takes a pre-encoded ``embedding=``.
+
+A task model may own trainable modules beside the net (the autoencoder's
+encoder, the vocoder's ``to_flat``): ``extras`` maps a prefix to each, and
+their parameters ride in ``params`` as ``"<prefix>/<state_dict name>"``.
+No net parameter name holds a "/", so the two never collide;
+:meth:`DiffusionModel.split_params` parts them again.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from abc import ABC, abstractmethod
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import Tensor
+from torch import Tensor, nn
 
 from ..diffusion.samplers import VSampler
 from ..diffusion.vdiffusion import VDiffusion, mse_loss
+from ..ops.layers import init_module
 from ..utils import default, dequant_pcm16, groupby, resolve_device
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "EncoderBase", "AdapterBase"]
 
 
 class DiffusionModel:
@@ -40,6 +48,34 @@ class DiffusionModel:
         self.sampler = sampler_t(net=self.net, **sampler_kwargs)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.net.init(self.generator)
+        self.extras: Dict[str, nn.Module] = {}
+
+    def _add_extra(self, prefix: str, module: nn.Module) -> nn.Module:
+        """Own ``module`` as trainable extra ``prefix``: moved to the model's
+        device and initialized from the model's generator."""
+        module = module.to(self.device)
+        init_module(module, self.generator)
+        self.extras[prefix] = module
+        return module
+
+    def split_params(self, params: Dict[str, Tensor]
+                     ) -> Tuple[Dict[str, Tensor], Dict[str, Dict[str, Tensor]]]:
+        """(the net's parameters, each extra's by prefix, keyed like its
+        ``state_dict``) from a dict keyed like :attr:`params`."""
+        net = {k: v for k, v in params.items() if "/" not in k}
+        extras: Dict[str, Dict[str, Tensor]] = {p: {} for p in self.extras}
+        for name, t in params.items():
+            if "/" in name:
+                prefix, key = name.split("/", 1)
+                if prefix not in extras:
+                    raise ValueError(f"parameter {name!r}: this model has no "
+                                     f"module {prefix!r}")
+                extras[prefix][key] = t
+        return net, extras
+
+    def _extra_state(self, state_dict_of) -> Dict[str, Tensor]:
+        return {f"{prefix}/{k}": v for prefix, m in self.extras.items()
+                for k, v in state_dict_of(m).items()}
 
     def _process_cond(self, kwargs: Dict) -> Dict:
         """``text=`` -> ``embedding=`` (on the model's device), through the
@@ -65,29 +101,44 @@ class DiffusionModel:
 
     @property
     def params(self) -> Dict[str, Tensor]:
-        """The live parameters, keyed like ``self.net.module.state_dict()``."""
-        return self.net.params()
+        """The live parameters, keyed like ``self.net.module.state_dict()``,
+        and each extra module's as ``"<prefix>/<name>"``."""
+        return {**self.net.params(),
+                **self._extra_state(lambda m: dict(m.named_parameters()))}
+
+    def _example(self, x: Tensor) -> Tensor:
+        """An example data batch as the net takes it (a task model may
+        fold or adapt it)."""
+        return x
 
     def initialize(self, x=None, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Tensor]:
         """Draw fresh parameters with the JAX package's initializers
         (lecun-normal kernels, zero-init modulation and skip gates,
-        normal(16) ``freqs``). ``x`` is an optional example batch
-        [B, C, T] of the data, checked by the diffusion method against
-        the net's input layout."""
-        return self.diffusion.init_net_params(
-            default(generator, self.generator),
-            None if x is None else torch.as_tensor(x))
+        normal(16) ``freqs``), the extra modules' too. ``x`` is an
+        optional example batch [B, C, T] of the data, checked by the
+        diffusion method against the net's input layout."""
+        generator = default(generator, self.generator)
+        self.diffusion.init_net_params(
+            generator, None if x is None else self._example(torch.as_tensor(x)))
+        for module in self.extras.values():
+            init_module(module, generator)
+        return self.params
 
     def save(self, path) -> None:
-        """Save the parameters as a ``state_dict`` (``torch.save``)."""
-        torch.save(self.net.module.state_dict(), path)
+        """Save the parameters as one ``state_dict`` (``torch.save``): the
+        net's, and each extra module's under its prefix."""
+        torch.save({**self.net.module.state_dict(),
+                    **self._extra_state(lambda m: m.state_dict())}, path)
 
     def load(self, path) -> Dict[str, Tensor]:
-        """Restore parameters saved by :meth:`save` into the live module
+        """Restore parameters saved by :meth:`save` into the live modules
         (strict: every name and shape must match)."""
         state = torch.load(path, map_location=self.device, weights_only=True)
-        self.net.module.load_state_dict(state, strict=True)
+        net, extras = self.split_params(state)
+        self.net.module.load_state_dict(net, strict=True)
+        for prefix, module in self.extras.items():
+            module.load_state_dict(extras[prefix], strict=True)
         return self.params
 
     def loss(self, params: Dict[str, Tensor], generator: torch.Generator,
@@ -119,16 +170,51 @@ class DiffusionModel:
         deterministic one raises if given one. ``params=`` overrides the
         live parameters for this call only, as a dict keyed like
         ``self.net.module.state_dict()``."""
-        if getattr(self.sampler, "needs_key", False):
-            lead = (default(generator, self.generator),)
-        elif generator is not None:
+        if generator is not None and not getattr(self.sampler, "needs_key",
+                                                 False):
             raise ValueError(f"{type(self.sampler).__name__} is "
                              "deterministic and takes no generator")
-        else:
-            lead = ()
+        return self._sample(default(params, self.params),
+                            default(generator, self.generator), *args,
+                            **kwargs)
+
+    def _sample(self, params: Dict[str, Tensor], generator: torch.Generator,
+                *args, **kwargs) -> Tensor:
+        """The sampler on the net's part of ``params``, in inference mode,
+        with ``generator`` ahead of ``args`` where it draws noise."""
+        lead = ((generator,) if getattr(self.sampler, "needs_key", False)
+                else ())
         with torch.inference_mode():
             args = tuple(torch.as_tensor(a, device=self.device)
                          if isinstance(a, (Tensor, np.ndarray)) else a
                          for a in args)
-            return self.sampler.sample(default(params, self.params), *lead,
+            return self.sampler.sample(self.split_params(params)[0], *lead,
                                        *args, **self._process_cond(kwargs))
+
+
+class EncoderBase(nn.Module, ABC):
+    """An encoder for :class:`DiffusionAE`: ``forward(x, with_info=False)``
+    maps audio [B, C, T] to a latent [B, out_channels, T /
+    downsample_factor] (with ``with_info``, a pair (latent, info dict)).
+    Its parameters train jointly with the net."""
+
+    out_channels: int
+    downsample_factor: int
+
+    @abstractmethod
+    def forward(self, x: Tensor, with_info: bool = False):
+        ...
+
+
+class AdapterBase(ABC):
+    """A fixed transform pair applied around the diffusion space of a
+    :class:`DiffusionAE`: the net learns ``encode(x)`` and a decoded sample
+    goes through ``decode``. It has no trainable parameters."""
+
+    @abstractmethod
+    def encode(self, x: Tensor) -> Tensor:
+        ...
+
+    @abstractmethod
+    def decode(self, x: Tensor) -> Tensor:
+        ...

@@ -1,17 +1,21 @@
 """Network factory ``UNetV0`` (counterpart of
-audio_diffusion_tpu/ops/components.py), dim=1, with the same flat kwargs."""
+audio_diffusion_tpu/ops/components.py), dim=1, with the same flat kwargs,
+and the net plugins ``LTPlugin`` and ``AppendChannelsPlugin``, which wrap
+a factory into another with the same call."""
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
+from torch import Tensor, nn
 
 from ..utils import default, resolve_device
+from .conv import Conv1d, ConvTranspose1d
 from .net import Net
-from .unet import (ClassifierFreeGuidanceWrapper, TimeConditioningWrapper,
-                   XUNet)
+from .unet import (AppendChannelsWrapper, ClassifierFreeGuidanceWrapper,
+                   TimeConditioningWrapper, XUNet)
 
-__all__ = ["UNetV0", "XUNet"]
+__all__ = ["UNetV0", "XUNet", "LTPlugin", "AppendChannelsPlugin"]
 
 
 def UNetV0(
@@ -121,3 +125,89 @@ def UNetV0(
     if use_text_conditioning:
         net.text_encoder = text_encoder
     return net
+
+
+def _wrap(inner_net: Net, module: nn.Module, in_channels: int,
+          out_channels: int) -> Net:
+    """A Net around ``module`` with the inner net's contract: σ use,
+    compute dtype and text encoder."""
+    net = Net(module, in_channels=in_channels, out_channels=out_channels,
+              uses_sigma=inner_net.uses_sigma,
+              compute_dtype=inner_net.compute_dtype)
+    net.text_encoder = inner_net.text_encoder
+    return net
+
+
+class _LTModule(nn.Module):
+    """Learned transform around a net: a reflect-padded strided ``encode``
+    conv (k = window, no bias) from C to C·num_filters channels, the inner
+    net, and the mirrored ``decode`` transposed conv back; both pad
+    window // 2 − stride // 2 and compute in the inner net's dtype. With
+    ``return_hidden`` the inner net's encoder state passes through."""
+
+    def __init__(self, inner: nn.Module, in_channels: int,
+                 in_channel_transform: int, out_channel_transform: int,
+                 out_channels: int, window_length: int, stride: int,
+                 dtype=None, device=None):
+        super().__init__()
+        padding = window_length // 2 - stride // 2
+        common = dict(stride=stride, padding=padding, use_bias=False,
+                      dtype=dtype, device=device)
+        self.inner = inner
+        self.encode = Conv1d(in_channels, in_channel_transform, window_length,
+                             padding_mode="reflect", **common)
+        self.decode = ConvTranspose1d(out_channel_transform, out_channels,
+                                      window_length, **common)
+
+    def forward(self, x: Tensor, sigmas: Optional[Tensor] = None, **kwargs):
+        h = self.inner(self.encode(x), sigmas, **kwargs)
+        if kwargs.get("return_hidden", False):
+            h, enc = h
+            return self.decode(h), enc
+        return self.decode(h)
+
+
+def LTPlugin(net_t: Callable[..., Net], num_filters: int, window_length: int,
+             stride: int) -> Callable[..., Net]:
+    """Learned Transform Plugin: ``net_t``'s net runs on a learned strided
+    framing of the signal (``num_filters`` channels per input channel, 1 /
+    ``stride`` of its length) and a learned transposed conv maps it back::
+
+        net_t = LTPlugin(UNetV0, num_filters=4, window_length=8, stride=4)
+        model = DiffusionModel(net_t=net_t, in_channels=2, ...)
+
+    The framing convs live on the inner net's device."""
+
+    def _factory(dim: int = 1, in_channels: int = 1,
+                 out_channels: Optional[int] = None, **kwargs) -> Net:
+        out_channels = default(out_channels, in_channels)
+        in_transform = in_channels * num_filters
+        out_transform = out_channels * num_filters
+        inner_net = net_t(dim=dim, in_channels=in_transform,
+                          out_channels=out_transform, **kwargs)
+        device = next(inner_net.module.parameters()).device
+        module = _LTModule(inner_net.module, in_channels, in_transform,
+                           out_transform, out_channels, window_length,
+                           stride, dtype=inner_net.compute_dtype,
+                           device=device)
+        return _wrap(inner_net, module, in_channels, out_channels)
+
+    return _factory
+
+
+def AppendChannelsPlugin(net_t: Callable[..., Net],
+                         channels: int) -> Callable[..., Net]:
+    """The inner net takes ``in_channels + channels``: the ``channels`` of
+    ``append_channels=`` are concatenated to its input
+    (:class:`ops.unet.AppendChannelsWrapper`). The upsampler and the
+    vocoder condition through it."""
+
+    def _factory(in_channels: int, out_channels: Optional[int] = None,
+                 **kwargs) -> Net:
+        out_channels = default(out_channels, in_channels)
+        inner_net = net_t(in_channels=in_channels + channels,
+                          out_channels=out_channels, **kwargs)
+        return _wrap(inner_net, AppendChannelsWrapper(inner_net.module),
+                     in_channels, out_channels)
+
+    return _factory

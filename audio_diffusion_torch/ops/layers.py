@@ -10,7 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
-__all__ = ["Dense", "LayerNorm", "lecun_normal_", "new_param"]
+__all__ = ["Dense", "LayerNorm", "GroupNorm", "lecun_normal_", "new_param",
+           "init_module"]
 
 # Standard deviation of a standard normal truncated to [-2, 2] (flax's
 # variance_scaling divides by it).
@@ -28,6 +29,16 @@ def lecun_normal_(t: Tensor, fan_in: int,
 def new_param(*shape: int, dtype=torch.float32, device=None) -> nn.Parameter:
     """An uninitialized parameter; ``init_params`` fills it."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def init_module(module: nn.Module,
+                generator: Optional[torch.Generator]) -> None:
+    """(Re)initialize every parameter of ``module`` in place: each submodule
+    with an ``init_params`` fills its own parameters from ``generator``."""
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "init_params"):
+                m.init_params(generator)
 
 
 class Dense(nn.Linear):
@@ -80,6 +91,39 @@ class LayerNorm(nn.Module):
         mean = xf.mean(-1, keepdim=True)
         var = torch.clamp(xf.square().mean(-1, keepdim=True) - mean * mean,
                           min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) \
+            + self.bias.float()
+        out_dtype = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)
+        return y.to(out_dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on channels-last [B, L, C]: f32 one-pass
+    moments E[x²] − E[x]² per (batch, group) (clamped at 0), eps 1e-6,
+    y = (x − mean)·(rsqrt(var + eps)·scale) + bias in f32, returned in
+    ``dtype`` (or the promoted input/param type). torch's GroupNorm differs
+    in both: eps 1e-5 and a centred variance."""
+
+    def __init__(self, features: int, num_groups: int, eps: float = 1e-6,
+                 dtype=None, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.scale = new_param(features, dtype=param_dtype, device=device)
+        self.bias = new_param(features, dtype=param_dtype, device=device)
+
+    def init_params(self, generator: Optional[torch.Generator]) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, length, c = x.shape
+        g = self.num_groups
+        xf = x.float()
+        xg = xf.reshape(b, length, g, c // g)
+        mean = xg.mean(dim=(1, 3))
+        var = torch.clamp(xg.square().mean(dim=(1, 3)) - mean * mean, min=0.0)
+        mean = mean.repeat_interleave(c // g, 1)[:, None]
+        var = var.repeat_interleave(c // g, 1)[:, None]
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) \
             + self.bias.float()
         out_dtype = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)

@@ -18,6 +18,8 @@ import torch
 from torch import Tensor, nn
 from torch.func import functional_call
 
+from .layers import init_module
+
 __all__ = ["Net", "cast_inference_params"]
 
 # Parameters that stay float32 under a bf16 compute dtype: SigmaEmbedding's
@@ -70,10 +72,7 @@ class Net:
     def init(self, generator: torch.Generator) -> Dict[str, Tensor]:
         """(Re)initialize every parameter in place with the JAX package's
         initializers, drawing from ``generator``; returns the parameters."""
-        with torch.no_grad():
-            for m in self.module.modules():
-                if hasattr(m, "init_params"):
-                    m.init_params(generator)
+        init_module(self.module, generator)
         return self.params()
 
     def apply(self, params_or_module: Union[nn.Module, Dict[str, Tensor]],

@@ -41,6 +41,7 @@ __all__ = [
     "SigmaEmbedding",
     "TimeConditioningWrapper",
     "ClassifierFreeGuidanceWrapper",
+    "AppendChannelsWrapper",
 ]
 
 
@@ -551,3 +552,18 @@ class ClassifierFreeGuidanceWrapper(nn.Module):
         out, out_fixed = out2[:b], out2[b:]
         out = out_fixed + embedding_scale * (out - out_fixed)
         return (out, enc) if with_hidden else out
+
+
+class AppendChannelsWrapper(nn.Module):
+    """Concatenates ``append_channels`` [B, C', T], cast to x's dtype, to
+    the net input on the channel axis before the inner net (the
+    upsampler's and the vocoder's conditioning)."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x: Tensor, sigmas: Optional[Tensor] = None, *,
+                append_channels: Tensor, **kwargs):
+        h = torch.cat([x, append_channels.to(x.dtype)], dim=1)
+        return self.inner(h, sigmas, **kwargs)

@@ -13,12 +13,28 @@ audio_diffusion_tpu/presets.py)::
     ar = DiffusionAR(net_t=UNetV0, in_channels=1, length=2**16,
                      num_splits=4, **presets._NET_9LEVEL)
 
-``UNCONDITIONAL_48K`` and ``TEXT_CONDITIONAL_48K`` run in the port, and so
-does ``_NET_9LEVEL`` under ``DiffusionAR``. The text-conditional one needs
-a ``text_encoder``: ``ops.text.RandomT5TextEncoder`` (the T5 encoder stack
-with random weights) or ``ops.text.StubTextEncoder`` (the pretrained
-``T5TextEncoder`` waits for its weights), or ``embedding=`` passed
-directly. The others need task models that are not ported yet.
+    up = DiffusionUpsampler(net_t=UNetV0, upsample_factor=16,
+                            **presets.UPSAMPLER_16X)
+
+    voc = DiffusionVocoder(net_t=UNetV0, **presets.VOCODER_48K)
+
+    ae = DiffusionAE(net_t=UNetV0, inject_depth=6,
+                     encoder=MelEncoder1d(in_channels=2, channels=512,
+                                          factors=[2], num_blocks=[12],
+                                          out_channels=32, mel_channels=80),
+                     **presets.AUTOENCODER_48K)
+
+Every preset runs in the port. ``UNCONDITIONAL_48K`` and
+``TEXT_CONDITIONAL_48K`` build a ``DiffusionModel``, ``_NET_9LEVEL`` a
+``DiffusionAR``, ``UPSAMPLER_16X`` a ``DiffusionUpsampler``,
+``VOCODER_48K`` a ``DiffusionVocoder`` (its ``mel_*`` keys configure the
+mel front end) and ``AUTOENCODER_48K`` a ``DiffusionAE``, which also takes
+an encoder and an ``inject_depth`` (the JAX CLI's encoder, above, has a
+downsampling factor of 512, which depth 6 of the 9-level net matches). The
+text-conditional one needs a ``text_encoder``: ``ops.text.RandomT5TextEncoder``
+(the T5 encoder stack with random weights) or ``ops.text.StubTextEncoder``
+(the pretrained ``T5TextEncoder`` waits for its weights), or ``embedding=``
+passed directly.
 """
 from __future__ import annotations
 

@@ -2,13 +2,16 @@
 and the device rule of the port."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, TypeVar, Union
+from functools import reduce
+from math import ceil, floor, log2
+from typing import Callable, Dict, Optional, Sequence, Tuple, TypeVar, Union
 
 import torch
 
 T = TypeVar("T")
 
-__all__ = ["exists", "default", "groupby", "dequant_pcm16", "resolve_device"]
+__all__ = ["exists", "default", "groupby", "prod", "closest_power_2",
+           "dequant_pcm16", "resolve_device"]
 
 
 def exists(val: Optional[T]) -> bool:
@@ -20,6 +23,19 @@ def default(val: Optional[T], d: Union[Callable[[], T], T]) -> T:
     if exists(val):
         return val  # type: ignore[return-value]
     return d() if callable(d) else d
+
+
+def prod(vals: Sequence[int]) -> int:
+    return reduce(lambda x, y: x * y, vals)
+
+
+def closest_power_2(x: float) -> int:
+    """The power of two nearest ``x``; it may round down (2^k below wins a
+    tie)."""
+    exponent = log2(x)
+    candidates = (floor(exponent), ceil(exponent))
+    exponent_closest = min(candidates, key=lambda z: abs(x - 2**z))
+    return 2 ** int(exponent_closest)
 
 
 def group_dict_by_prefix(prefix: str, d: Dict) -> Tuple[Dict, Dict]:

@@ -29,7 +29,23 @@ no-modulation branch, held against the plain version at its nine level
 shapes (L = 2^16 ... 2^5; bf16 and f32 forward, bf16 backward at batch 1
 and 8, 9 gradients), and the other samplers and a small AR model are held
 on the card against the CPU with host-made noise fed through the replaced
-``diffusion.noise.normal``.
+``diffusion.noise.normal``. Last, the task models at full width, each
+freed before the next is built: ``DiffusionUpsampler(upsample_factor=16,
+**presets.UPSAMPLER_16X)`` (``upsampler.sample`` of [1, 2, 2^14] to 2^18
+samples, 50 steps, and Adam steps at batch 8), ``DiffusionVocoder(
+**presets.VOCODER_48K)`` (``vocoder.sample`` of the stereo mel [1, 2, 80,
+1024] that its ``to_spectrogram`` makes of 2^18 samples, the items at
+batch 2; Adam steps at batch 8, the net at batch 16; its ``to_flat``
+against cuDNN's transposed conv, default and deterministic) and
+``DiffusionAE(
+inject_depth=6, encoder=MelEncoder1d(...), **presets.AUTOENCODER_48K)``
+with the JAX CLI's encoder (``ae.encode`` to a [1, 32, 512] latent
+through 12 no-modulation items at C = 512, L = 1,024; ``ae.decode``, 50
+steps; Adam steps at batch 8 that train the encoder too). Before them the
+kernels are held against the plain version at those new shapes (the
+encoder's item, forward at batch 1, backward at 1 and 8; the modulated
+item at the nine levels at batch 16, forward and backward), and the DSP
+front end and small task models on the card against the CPU.
 
     python3 chip_smoke.py
 
@@ -51,7 +67,14 @@ backward row's ``train_batch_ms``, ``train_batch_bound_ms`` and
 levels (``nomod_train_batch_*`` at batch 8), and ``dpm_launches`` (1,050),
 ``sde_launches`` (2,100), ``longform_launches`` (5,250),
 ``t5_guided_dpm_launches`` (1,050 at batch 2), ``ar_sample_launches``
-(13,440 = 42 x 320 passes) and ``ar_train_launches`` count those paths'.
+(13,440 = 42 x 320 passes) and ``ar_train_launches`` count those paths';
+``upsampler_launches`` and ``vocoder_launches`` (2,100 each),
+``ae_encode_launches`` (12), ``ae_decode_launches`` (2,100) and the
+``*_train_launches`` of the three task models (42 per step; 54 for the
+autoencoder) the task paths'. The ``encoder_nomod_*`` keys are the
+encoder's per-pass sums (12 items at C = 512, L = 1,024; the backward's
+``encoder_nomod_train_batch_*`` at batch 8) and the ``batch16_*`` keys
+the flagship levels' per-pass sums at batch 16.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2, with the same bars.
@@ -134,6 +157,28 @@ LONG = dict(length=2**19, window=2**18, overlap=2**16, num_steps=DPM_STEPS,
 T5_CAPTIONS = ["a dog barking in the rain", "",
                "a long caption of more than sixty-four bytes: rain, thunder "
                "and a distant train", "pluie fine sur le toit, très douce"]
+# The task models: the x16 upsampler (2^14 -> 2^18 samples), the mel
+# vocoder (80 mels, hop 256, so 1,024 frames of 2^18 samples; a train step
+# on 8 stereo clips runs the net at batch 16) and the autoencoder with the
+# JAX CLI's encoder defaults (12 items at C = 512 over the 1,024 mel frames,
+# a x2 patch down to a [32, 512] latent, injected at depth 6).
+UPSAMPLE_FACTOR = 16
+TASK_BATCH = 2 * TRAIN_BATCH
+ENCODER = dict(in_channels=2, channels=512, factors=[2], num_blocks=[12],
+               out_channels=32, mel_channels=80)
+ENCODER_LEVEL = (512, 1024)
+ENCODER_ITEMS = 12
+INJECT_DEPTH = 6
+SMALL_TASK = dict(channels=[8, 32, 64], factors=[1, 4, 2], items=[1, 1, 1],
+                  modulation_features=64)
+SMALL_VOCODER = dict(mel_channels=16, mel_n_fft=128, mel_sample_rate=16000,
+                     mel_normalize_log=True)
+SMALL_ENCODER = dict(in_channels=2, channels=32, out_channels=4, factors=[2],
+                     num_blocks=[1], mel_channels=16, mel_n_fft=64,
+                     mel_sample_rate=16000)
+SMALL_AE = dict(in_channels=2, inject_depth=2, channels=[8, 16, 32],
+                factors=[1, 4, 8], items=[1, 1, 1], modulation_features=32)
+SMALL_LT = dict(num_filters=4, window_length=8, stride=4)
 GROUPS = 8
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -246,21 +291,23 @@ def backward_bound(c, length, batch, dname, use_modulation=True):
 
 
 def item_at_train_batch(level, c, length, gen, flush, use_modulation=True,
-                        phase="kernel_backward_vs_plain"):
-    """The item at the shape the train step gives it (batch TRAIN_BATCH,
-    bf16), forward and backward through the kernels against the plain
-    version under autograd: the output that the gradient-keeping forward
-    writes, all 13 gradients (9 without modulation), a bit-identical second
-    backward, the plans of the backward's two convolutions, and the
-    backward's device time beside its bound and the library yardstick's."""
+                        phase="kernel_backward_vs_plain", batch=TRAIN_BATCH,
+                        items_per_forward=None, time_plain=False):
+    """The item at the shape a train step gives it (``batch``, TRAIN_BATCH
+    unless given; bf16), forward and backward through the kernels against
+    the plain version under autograd: the output that the gradient-keeping
+    forward writes, all 13 gradients (9 without modulation), a
+    bit-identical second backward, the plans of the backward's two
+    convolutions, and the backward's device time beside its bound and the
+    library yardstick's (and the plain version's, with ``time_plain``)."""
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         backward_occupancy, fused_resnet_item, resnet_item_reference)
 
     dtype = torch.bfloat16
     n_args = 13 if use_modulation else 9
-    args = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)[:n_args]
-    g = item_inputs(c, length, dtype, gen, batch=TRAIN_BATCH)[0]
+    args = item_inputs(c, length, dtype, gen, batch=batch)[:n_args]
+    g = item_inputs(c, length, dtype, gen, batch=batch)[0]
     results = []
     for fn in (fused_resnet_item, resnet_item_reference):
         leaves = [t.clone().requires_grad_(True) for t in args]
@@ -268,22 +315,24 @@ def item_at_train_batch(level, c, length, gen, flush, use_modulation=True,
         backward = (lambda out=out, leaves=leaves: torch.autograd.grad(
             out, leaves, g, retain_graph=True))
         results.append((out.detach(), backward(), backward))
-    kernel_bwd = results[0][2]
+    kernel_bwd, plain_bwd = results[0][2], results[1][2]
     again = kernel_bwd()
     torch.cuda.synchronize()
     (out, got, _), (ref, want, _) = results
     err = (out.float() - ref.float()).abs().max().item()
     bound = 2.0 ** -5 * ref.float().abs().max().item()
     if not (err <= bound):
-        raise AssertionError(f"level {level} batch {TRAIN_BATCH}: forward "
+        raise AssertionError(f"level {level} batch {batch}: forward "
                              f"with gradients kept, max-abs {err} > {bound}")
     rel, worst = gradient_errors(got, want, c, 2e-2,
-                                 f"level {level} batch {TRAIN_BATCH} bfloat16")
+                                 f"level {level} batch {batch} bfloat16")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"level {level} batch {TRAIN_BATCH}: two bf16 "
+        raise AssertionError(f"level {level} batch {batch}: two bf16 "
                              "backwards on the same graph differ")
     del results, got, want, again
     kernel_ms = cuda_ms(kernel_bwd, flush)
+    plain_ms = cuda_ms(plain_bwd, flush) if time_plain else None
+    del plain_bwd
     lib_args = list(args)
     lib_args[0] = args[0].transpose(1, 2).contiguous()
     lib_args[3] = args[3].permute(2, 1, 0).contiguous()
@@ -291,17 +340,19 @@ def item_at_train_batch(level, c, length, gen, flush, use_modulation=True,
     library_ms = cuda_ms(backward_of(library_item, lib_args,
                                      g.transpose(1, 2).contiguous()), flush)
     bound_ms, bound_by, nbytes, flops = backward_bound(
-        c, length, TRAIN_BATCH, "bfloat16", use_modulation)
+        c, length, batch, "bfloat16", use_modulation)
     row = dict(phase=phase,
                kernel="fused_resnet_item.backward", level=level, channels=c,
-               length=length, batch=TRAIN_BATCH, dtype="bfloat16",
-               plans=backward_occupancy(c, length, TRAIN_BATCH),
+               length=length, batch=batch, dtype="bfloat16",
+               plans=backward_occupancy(c, length, batch),
                bit_identical_rerun=True,
                forward_max_abs_err=err, forward_tolerance=bound,
                max_rel_err=rel, tolerance=2e-2, max_abs_err=worst,
                kernel_ms=kernel_ms, library_ms=library_ms,
+               **({"plain_ms": plain_ms} if time_plain else {}),
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops, items_per_forward=2 * ITEMS[level])
+               flops=flops, items_per_forward=(items_per_forward
+                                              or 2 * ITEMS[level]))
     emit(row)
     return row
 
@@ -350,11 +401,15 @@ def phase_kernel_vs_plain_nomod(flush):
                         use_modulation=False)
 
 
-def forward_rows(flush, phase, levels, runs, seed, use_modulation=True):
+def forward_rows(flush, phase, levels, runs, seed, use_modulation=True,
+                 items=None):
     """Kernel vs plain version at each of ``levels`` (C, L) for each (dtype,
     batch) of ``runs``, with the times of the kernel, the plain version and
     the library yardstick beside the bound. A bf16 row also reports the
-    conv's plan and checks that a second call gives the same bits."""
+    conv's plan and checks that a second call gives the same bits.
+    ``items`` are the items per pass at each level (the flagship's
+    unless given)."""
+    items = items or [2 * n for n in ITEMS]
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         conv_occupancy, fused_resnet_item, resnet_item_reference)
@@ -415,7 +470,7 @@ def forward_rows(flush, phase, levels, runs, seed, use_modulation=True):
                        bound_ms=max(bytes_ms, flops_ms),
                        bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                        bytes=nbytes, flops=flops,
-                       items_per_forward=2 * ITEMS[level])
+                       items_per_forward=items[level])
             if not use_modulation:
                 row["use_modulation"] = False
             emit(row)
@@ -459,10 +514,14 @@ def phase_kernel_backward_vs_plain_nomod(flush):
                          (torch.bfloat16,), seed=7, use_modulation=False)
 
 
-def backward_rows(flush, phase, levels, dtypes, seed, use_modulation=True):
+def backward_rows(flush, phase, levels, dtypes, seed, use_modulation=True,
+                  items=None, time_plain=False):
     """Backward kernels vs autograd of the plain version at each of
     ``levels`` for each of ``dtypes`` at batch 1, then each level in bf16
-    at the train step's batch (:func:`item_at_train_batch`)."""
+    at the train step's batch (:func:`item_at_train_batch`, which times
+    the plain version too with ``time_plain``). ``items`` are the items
+    per pass at each level (the flagship's unless given)."""
+    items = items or [2 * n for n in ITEMS]
     import torch
     from audio_diffusion_torch.ops.kernels.resnet import (
         backward_occupancy, fused_resnet_item, resnet_item_reference,
@@ -525,14 +584,16 @@ def backward_rows(flush, phase, levels, dtypes, seed, use_modulation=True):
                        kernel_host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        bytes=nbytes, flops=flops,
-                       items_per_forward=2 * ITEMS[level])
+                       items_per_forward=items[level])
             if not use_modulation:
                 row["gradients"] = len(got)
             emit(row)
             rows.append(row)
             del kernel_bwd, plain_bwd, library_bwd, got, want
     train_rows = [item_at_train_batch(level, c, length, gen, flush,
-                                      use_modulation, phase)
+                                      use_modulation, phase,
+                                      items_per_forward=items[level],
+                                      time_plain=time_plain)
                   for level, (c, length) in enumerate(levels)]
     return rows, train_rows
 
@@ -1209,22 +1270,25 @@ def phase_profile(name, run, **extra):
               host_own_ms={k: v * 1e3 for k, v in host}))
 
 
-def phase_train(model, phase="train", channels=2, length=LENGTH, **cond):
+def phase_train(model, phase="train", channels=2, length=LENGTH,
+                items_per_pass=None, item_batch=TRAIN_BATCH, **cond):
     """A training main path: Adam steps of a model at full width and depth,
     bf16 compute over float32 master parameters, on a batch of ``channels``
     x ``length`` (2^18-sample stereo for the flagships), through
     ``DiffusionModel.loss`` and ``make_train_step``, with ``cond`` (the
     conditioning kwargs) on every step. Where the net has CFG, the
     embedding mask's draws are counted: ``fixed_embedding`` moves exactly
-    when a row was masked in an Adam step. Returns the item launches
-    (forward, backward) counted over the timed steps."""
+    when a row was masked in an Adam step. ``items_per_pass`` is the item
+    launches each direction makes per step (the flagship's 42 unless
+    given), and ``item_batch`` the batch the items run at. Returns the
+    item launches (forward, backward) counted over the timed steps."""
     import torch
     from audio_diffusion_torch import make_train_step
     from audio_diffusion_torch.ops.kernels import resnet
     from audio_diffusion_torch.ops.unet import ClassifierFreeGuidanceWrapper
 
     item = resnet.fused_resnet_item
-    items_per_pass = 2 * sum(ITEMS)
+    items_per_pass = items_per_pass or 2 * sum(ITEMS)
     gen = torch.Generator(device=model.device).manual_seed(4)
     batch = torch.randn(TRAIN_BATCH, channels, length, device=model.device,
                         generator=gen).clamp_(-1.0, 1.0)
@@ -1281,8 +1345,8 @@ def phase_train(model, phase="train", channels=2, length=LENGTH, **cond):
     extra = dict(embedding_mask_proba=cond.get("embedding_mask_proba"),
                  masked_rows_per_step=masked,
                  masked_rows_first_gradient=masked_first) if masks else {}
-    emit(dict(phase=phase, batch=TRAIN_BATCH, channels=channels,
-              length=length,
+    emit(dict(phase=phase, batch=TRAIN_BATCH, item_batch=item_batch,
+              channels=channels, length=length,
               dtype="bfloat16", optimizer="Adam(lr=1e-4)", steps=TRAIN_STEPS,
               ms_per_step=median, ms_per_step_runs=step_ms,
               samples_per_s=TRAIN_BATCH / median * 1e3,
@@ -1292,7 +1356,7 @@ def phase_train(model, phase="train", channels=2, length=LENGTH, **cond):
               expected_launches=items_per_pass * TRAIN_STEPS,
               parameters=len(leaves),
               parameter_elements=sum(p.numel() for p in leaves),
-              **extra, peak_memory_bytes=peak))
+              **extra, peak_memory_bytes=peak, peak_gb=peak / 1e9))
     if launches != (items_per_pass * TRAIN_STEPS,) * 2:
         raise AssertionError(
             f"{phase}: {launches} (forward, backward) item launches in "
@@ -1312,6 +1376,431 @@ def phase_train(model, phase="train", channels=2, length=LENGTH, **cond):
                   lambda: train_step(state, batch, **cond), steps=1,
                   batch=TRAIN_BATCH)
     return launches
+
+
+def phase_kernel_vs_plain_tasks(flush):
+    """The kernels at the task models' new shapes, held against the plain
+    version with the bars above: the encoder's no-modulation item at (C =
+    512, L = 1024), forward at batch 1 and backward at batch 1 and 8; and
+    the modulated item at the nine flagship levels at batch 16 (the
+    vocoder's train step), forward and backward, each with its plans, a
+    bit-identical rerun, and its time beside the plain version's, the
+    library's and the bound. Returns (encoder forward rows, batch-16
+    forward rows, encoder backward rows at batch 1, at batch 8, batch-16
+    backward rows)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    enc = forward_rows(flush, "kernel_vs_plain_tasks", [ENCODER_LEVEL],
+                       ((bf16, 1),), seed=11, use_modulation=False,
+                       items=[ENCODER_ITEMS])
+    fwd16 = forward_rows(flush, "kernel_vs_plain_tasks", LEVELS,
+                         ((bf16, TASK_BATCH),), seed=12)
+    enc_bwd, enc_bwd8 = backward_rows(
+        flush, "kernel_backward_vs_plain_tasks", [ENCODER_LEVEL], (bf16,),
+        seed=13, use_modulation=False, items=[ENCODER_ITEMS],
+        time_plain=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bwd16 = [item_at_train_batch(level, c, length, gen, flush, True,
+                                 "kernel_backward_vs_plain_tasks",
+                                 batch=TASK_BATCH, time_plain=True)
+             for level, (c, length) in enumerate(LEVELS)]
+    return enc, fwd16, enc_bwd, enc_bwd8, bwd16
+
+
+def wsq_scale(n_fft, hop, win, frames, length):
+    """min(1, Σ window²) at each sample of an inverse STFT: where it is
+    small the inverse divides the FFTs' rounding by it, and a bar on the
+    output is scaled by its inverse there."""
+    import torch
+    from audio_diffusion_torch.dsp.mel import _framing_window
+
+    w2 = _framing_window(n_fft, win, "cpu") ** 2
+    wsq = torch.zeros(max(length, (frames - 1) * hop + n_fft))
+    for f in range(frames):
+        wsq[f * hop:f * hop + n_fft] += w2
+    return wsq[:length].clamp(1e-11, 1.0)
+
+
+def phase_dsp_small_reference():
+    """The DSP front end on the card (cuFFT) against the CPU (pocketfft),
+    float32, on host-made signals: x16 resampling both ways, the STFT and
+    its inverse, 8 Griffin-Lim iterations, ``MelSpectrogram`` with
+    ``normalize`` and with ``normalize_log``, and the multi-resolution STFT
+    loss and its gradient. Bar: max-abs ≤ 1e-4·max(1, max|y|), the sums
+    in other orders; the inverse STFT's and Griffin-Lim's scaled by
+    1 / min(1, Σ window²) at each sample."""
+    import torch
+    from audio_diffusion_torch import dsp, multi_resolution_stft_loss
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(2, 2, 2**14, generator=gen)
+    low = torch.randn(2, 2, 2**10, generator=gen)
+    pred = torch.randn(2, 1, 2**14, generator=gen)
+    n_fft, hop = 1024, 256
+    spec = dsp.stft(x.flatten(0, 1), n_fft, hop)
+    frames = spec.shape[-1]
+    wsq = wsq_scale(n_fft, hop, n_fft, frames, 2**14)
+
+    def loss_and_grad(p, t):
+        p = p.clone().requires_grad_(True)
+        loss = multi_resolution_stft_loss(p, t)
+        return torch.cat([loss.detach()[None],
+                          torch.autograd.grad(loss, [p])[0].flatten()])
+
+    cases = {
+        "upsample_16": (lambda a: dsp.upsample(a, UPSAMPLE_FACTOR), (low,),
+                        None),
+        "downsample_16": (lambda a: dsp.downsample(a, UPSAMPLE_FACTOR), (x,),
+                          None),
+        "stft": (lambda a: dsp.stft(a, n_fft, hop), (x.flatten(0, 1),), None),
+        "istft": (lambda s: dsp.istft(s, n_fft, hop, length=2**14), (spec,),
+                  wsq),
+        "griffin_lim_8": (lambda m: dsp.griffin_lim(m, n_fft, hop, n_iter=8,
+                                                    length=2**14),
+                          (spec.abs(),), wsq),
+        "mel_normalize": (dsp.MelSpectrogram(n_fft, hop, n_fft, 48000, 80,
+                                             normalize=True), (x,), None),
+        "mel_normalize_log": (dsp.MelSpectrogram(n_fft, hop, n_fft, 48000,
+                                                 80, normalize_log=True),
+                              (x,), None),
+        "stft_loss_and_grad": (loss_and_grad, (pred, x[:, :1]), None),
+    }
+    errs, worst = {}, 0.0
+    for name, (fn, args, scale) in cases.items():
+        want = fn(*args)
+        got = fn(*(a.cuda() for a in args)).cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"dsp small reference {name}: shape "
+                                 f"{tuple(got.shape)} or non-finite values")
+        diff = (got - want).abs()
+        bar = 1e-4 * max(1.0, want.abs().max().item())
+        ratio = (diff / (bar / scale if scale is not None else bar)).max()
+        errs[name] = diff.max().item()
+        worst = max(worst, ratio.item())
+    emit(dict(phase="dsp_small_reference", dtype="float32", n_fft=n_fft,
+              hop=hop, max_abs_err=errs, worst_share_of_bar=worst,
+              tolerance="1e-4*max(1,max|y|), /min(1,sum window^2) for "
+                        "istft and griffin_lim"))
+    if not worst <= 1.0:
+        raise AssertionError(f"dsp small reference: {errs} (worst {worst} "
+                             "of the bar)")
+
+
+def copy_params(dst, src) -> None:
+    """Every parameter of task model ``src`` into ``dst`` (net and extras)."""
+    dst.net.module.load_state_dict(src.net.module.state_dict())
+    for prefix, module in dst.extras.items():
+        module.load_state_dict(src.extras[prefix].state_dict())
+
+
+def phase_task_small_reference():
+    """Small task models on the card (kernel path, float32) against the same
+    weights on the CPU: an upsampler (x4), a vocoder, an autoencoder and a
+    net behind ``LTPlugin``; each one's loss at host-made σ and noise (the
+    whole model path: reupsampling, folding, ``to_flat``, the encoder), a
+    4-step sample from host-made noise fed through the replaced noise
+    helper, and the autoencoder's latent."""
+    import torch
+    from audio_diffusion_torch import (DiffusionAE, DiffusionModel,
+                                       DiffusionUpsampler, DiffusionVocoder,
+                                       LTPlugin, MelEncoder1d, UNetV0)
+    from audio_diffusion_torch.diffusion import noise as noise_module
+    from audio_diffusion_torch.diffusion.vdiffusion import v_loss
+
+    builders = {
+        "upsampler": lambda dev: DiffusionUpsampler(
+            net_t=UNetV0, in_channels=2, upsample_factor=4, device=dev,
+            seed=1, **SMALL_TASK),
+        "vocoder": lambda dev: DiffusionVocoder(
+            net_t=UNetV0, device=dev, seed=1, **SMALL_VOCODER, **SMALL_TASK),
+        "autoencoder": lambda dev: DiffusionAE(
+            net_t=UNetV0, encoder=MelEncoder1d(device=dev, **SMALL_ENCODER),
+            device=dev, seed=1, **SMALL_AE),
+        "lt_plugin": lambda dev: DiffusionModel(
+            net_t=LTPlugin(UNetV0, **SMALL_LT), in_channels=2, device=dev,
+            seed=1, **SMALL_TASK),
+    }
+    gen = torch.Generator().manual_seed(22)
+    audio = torch.randn(2, 2, 1024, generator=gen)
+    errs = {}
+    for name, build in builders.items():
+        cpu = build("cpu")
+        fill_zero_params(cpu)
+        gpu = build("cuda")
+        copy_params(gpu, cpu)
+        net_batch = 4 if name == "vocoder" else 2
+        sigmas = torch.rand(net_batch, generator=gen)
+        eps = torch.randn(net_batch, 2 if name != "vocoder" else 1, 1024,
+                          generator=gen)
+        outs = {}
+        for model in (cpu, gpu):
+            dev = model.device
+
+            def fixed(params, generator, x, model=model, dev=dev, **kw):
+                return v_loss(model.net, params, x, sigmas.to(dev),
+                              eps.to(dev), **kw)
+
+            with mock.patch.object(model.diffusion, "loss", fixed):
+                loss = model.loss(model.params, None, audio.to(dev))
+            with mock.patch.object(noise_module, "normal", host_noise(23)):
+                if name == "upsampler":
+                    out = model.sample(audio[:1, :, ::4].to(dev), num_steps=4)
+                elif name == "vocoder":
+                    out = model.sample(model.to_spectrogram(audio[:1].to(
+                        dev)), num_steps=4)
+                elif name == "autoencoder":
+                    latent = model.encode(audio.to(dev))
+                    outs["latent", dev.type] = latent.cpu()
+                    out = model.decode(latent[:1], num_steps=4)
+                else:
+                    out = model.sample(audio[:1].to(dev), num_steps=4)
+            outs["loss", dev.type] = loss.detach().cpu()[None]
+            outs["sample", dev.type] = out.cpu()
+        for (what, where), got in outs.items():
+            if where != "cuda":
+                continue
+            want = outs[what, "cpu"]
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"task small reference {name} {what}: "
+                                     f"shape {tuple(got.shape)} or "
+                                     "non-finite values")
+            errs[f"{name}_{what}"] = (got - want).abs().max().item()
+    emit(dict(phase="task_small_reference", dtype="float32", steps=4,
+              max_abs_err=errs, tolerance=1e-3))
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f"task small reference: max-abs {errs}")
+
+
+def task_sample_runs(phase, sample, expected, shape, batch=1, **extra):
+    """A task model's sampling main path: a 2-step warm-up, then three
+    ``NUM_STEPS``-step runs of ``sample(num_steps, generator)``, each with a
+    generator seeded alike (so the same noise): the item launches counted
+    over the first, ms per step (the median of three), bit-identical
+    reruns, samples per second and peak memory. Returns (launches, the
+    first output)."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(31)
+
+    sample(2, generator())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, step_ms = [], []
+    for run in range(3):
+        if run == 0:
+            resnet.fused_resnet_item.launches = 0
+        t0 = time.perf_counter()
+        outs.append(sample(NUM_STEPS, generator()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+        if run == 0:
+            launches = resnet.fused_resnet_item.launches
+    peak = torch.cuda.max_memory_allocated()
+    out = outs[0]
+    same = all(torch.equal(out, o) for o in outs[1:])
+    median = sorted(step_ms)[1]
+    emit(dict(phase=phase, steps=NUM_STEPS, batch=batch, dtype="bfloat16",
+              **extra, ms_per_step=median, ms_per_step_runs=step_ms,
+              samples_per_s=batch / (median * NUM_STEPS / 1e3),
+              item_launches=launches, expected_launches=expected,
+              bit_identical_reruns=same, peak_memory_bytes=peak,
+              peak_gb=peak / 1e9, out_shape=list(out.shape),
+              out_dtype=str(out.dtype), out_std=out.float().std().item()))
+    if launches != expected:
+        raise AssertionError(f"{phase}: {launches} item launches, expected "
+                             f"{expected}")
+    if tuple(out.shape) != shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{phase}: shape {tuple(out.shape)} (expected "
+                             f"{shape}) or non-finite values")
+    if not same:
+        raise AssertionError(f"{phase}: reruns with the same noise differ")
+    return launches, out
+
+
+def host_audio(seed, batch=1):
+    """Stereo 2^18-sample audio in [-1, 1] made on the host, on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(batch, 2, LENGTH, generator=gen).clamp_(-1.0,
+                                                                1.0).cuda()
+
+
+def phase_upsampler(torch):
+    """``DiffusionUpsampler(upsample_factor=16, **presets.UPSAMPLER_16X)`` in
+    bf16: a 50-step sample of [1, 2, 2^14] -> [1, 2, 2^18] (the net takes
+    2 + 2 channels; 42 items per step at batch 1), then Adam steps at batch
+    8. Returns (sample launches, train launches)."""
+    from audio_diffusion_torch import DiffusionUpsampler, UNetV0, presets
+
+    model = DiffusionUpsampler(net_t=UNetV0, upsample_factor=UPSAMPLE_FACTOR,
+                               **presets.UPSAMPLER_16X, dtype=torch.bfloat16)
+    fill_zero_params(model)
+    low = host_audio(41)[..., ::UPSAMPLE_FACTOR].contiguous()
+    launches, _ = task_sample_runs(
+        "upsampler_sample",
+        lambda steps, gen: model.sample(low, num_steps=steps, generator=gen),
+        2 * sum(ITEMS) * NUM_STEPS, (1, 2, LENGTH), item_batch=1,
+        in_shape=list(low.shape), upsample_factor=UPSAMPLE_FACTOR)
+    phase_profile("upsampler_sample_profile",
+                  lambda: model.sample(low, num_steps=2), steps=2)
+    train = phase_train(model, "upsampler_train")
+    return launches, train
+
+
+def phase_vocoder(torch):
+    """``DiffusionVocoder(**presets.VOCODER_48K)`` in bf16, ``to_flat`` in
+    f32: a 50-step sample from the stereo mel [1, 2, 80, 1024] that the
+    model's own ``to_spectrogram`` makes of host-made 2^18-sample audio (the
+    channels fold into the batch: 42 items per step at batch 2), then Adam
+    steps at batch 8 (the net and its items at batch 16), profiled. Returns
+    (sample launches, train launches)."""
+    from audio_diffusion_torch import DiffusionVocoder, UNetV0, presets
+
+    model = DiffusionVocoder(net_t=UNetV0, **presets.VOCODER_48K,
+                             dtype=torch.bfloat16)
+    fill_zero_params(model)
+    mel = model.to_spectrogram(host_audio(42))
+    if tuple(mel.shape) != (1, 2, 80, 1024):
+        raise AssertionError(f"vocoder: mel of shape {tuple(mel.shape)}")
+    launches, _ = task_sample_runs(
+        "vocoder_sample",
+        lambda steps, gen: model.sample(mel, num_steps=steps, generator=gen),
+        2 * sum(ITEMS) * NUM_STEPS, (1, 2, LENGTH), item_batch=2,
+        mel_shape=list(mel.shape))
+    phase_profile("vocoder_sample_profile",
+                  lambda: model.sample(mel, num_steps=2), steps=2)
+    train = phase_train(model, "vocoder_train", item_batch=TASK_BATCH)
+    phase_to_flat(model, model.to_spectrogram(host_audio(44, TRAIN_BATCH)))
+    return launches, train
+
+
+def phase_to_flat(model, mel):
+    """The vocoder's ``to_flat`` at the train step's shape (the stereo mel of
+    8 clips, [16, 80, 1024] -> [16, 1, 2^18], float32): the port's
+    transposed conv (one product and ``F.fold``) against cuDNN's
+    ``F.conv_transpose1d`` with its default and with its deterministic
+    algorithms: the outputs (max-abs ≤ 2e-4·max(1, max|y|)), the port's
+    bits on a rerun, and the device time of a forward and of a forward
+    with the kernel's gradient."""
+    import torch
+    import torch.nn.functional as F
+    from audio_diffusion_torch.ops.conv import conv_transpose1d
+
+    spec = mel.flatten(0, 1).float().contiguous()
+    conv = model.to_flat
+    kernel = conv.kernel.detach().clone()
+    c = torch.backends.cudnn
+
+    def cudnn(x, k, deterministic=False):
+        with c.flags(enabled=True, benchmark=c.benchmark,
+                     deterministic=deterministic, allow_tf32=False):
+            return F.conv_transpose1d(x, k.permute(1, 2, 0),
+                                      stride=conv.stride,
+                                      padding=conv.padding)
+
+    variants = {
+        "port": lambda x, k: conv_transpose1d(x, k, conv.stride,
+                                              conv.padding),
+        "cudnn": cudnn,
+        "cudnn_deterministic": functools.partial(cudnn, deterministic=True),
+    }
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    g = torch.randn(spec.shape[0], 1, spec.shape[-1] * conv.stride,
+                    device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(45))
+    row, outs = {}, {}
+    for name, fn in variants.items():
+        with torch.no_grad():
+            outs[name] = fn(spec, kernel)
+        leaf = kernel.clone().requires_grad_(True)
+
+        def fwd_bwd(fn=fn, leaf=leaf):
+            return torch.autograd.grad(fn(spec, leaf), [leaf], g)
+
+        with torch.no_grad():
+            row[f"{name}_forward_ms"] = cuda_ms(lambda fn=fn: fn(spec, kernel),
+                                                flush)
+        row[f"{name}_forward_backward_ms"] = cuda_ms(fwd_bwd, flush)
+    with torch.no_grad():
+        again = variants["port"](spec, kernel)
+    want = outs["cudnn"]
+    bar = 2e-4 * max(1.0, want.abs().max().item())
+    errs = {k: (v - want).abs().max().item() for k, v in outs.items()}
+    same = torch.equal(again, outs["port"])
+    emit(dict(phase="vocoder_to_flat", in_shape=list(spec.shape),
+              out_shape=list(outs["port"].shape), dtype="float32", **row,
+              max_abs_err_vs_cudnn=errs, tolerance=bar,
+              port_bit_identical_rerun=same))
+    if not max(errs.values()) <= bar or not same:
+        raise AssertionError(f"vocoder_to_flat: {errs} (bar {bar}), port "
+                             f"rerun bit-identical: {same}")
+
+
+def phase_autoencoder(torch):
+    """``DiffusionAE(inject_depth=6, encoder=MelEncoder1d(...),
+    **presets.AUTOENCODER_48K)`` in bf16 (the encoder too): ``encode`` of
+    [1, 2, 2^18] to a [1, 32, 512] latent (12 no-modulation items at C =
+    512, L = 1,024; the median of three timed encodes, each bit-identical),
+    a 50-step ``decode`` of it, and Adam steps at batch 8 that train the
+    encoder jointly (42 + 12 items each way per step). Returns (encode
+    launches, decode launches, train launches)."""
+    from audio_diffusion_torch import (DiffusionAE, MelEncoder1d, UNetV0,
+                                       presets)
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    encoder = MelEncoder1d(**ENCODER, dtype=torch.bfloat16)
+    model = DiffusionAE(net_t=UNetV0, inject_depth=INJECT_DEPTH,
+                        encoder=encoder, **presets.AUTOENCODER_48K,
+                        dtype=torch.bfloat16)
+    fill_zero_params(model)
+    audio = host_audio(43)
+    model.encode(audio)
+    torch.cuda.synchronize()
+    latents, encode_ms = [], []
+    for run in range(3):
+        if run == 0:
+            resnet.fused_resnet_item.launches = 0
+        t0 = time.perf_counter()
+        latents.append(model.encode(audio))
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        if run == 0:
+            encode_launches = resnet.fused_resnet_item.launches
+    latent = latents[0]
+    same = all(torch.equal(latent, t) for t in latents[1:])
+    shape = (1, ENCODER["out_channels"], LENGTH // encoder.downsample_factor)
+    emit(dict(phase="ae_encode", batch=1, dtype="bfloat16",
+              encode_ms=sorted(encode_ms)[1], encode_ms_runs=encode_ms,
+              item_launches=encode_launches, expected_launches=ENCODER_ITEMS,
+              bit_identical_reruns=same, latent_shape=list(latent.shape),
+              latent_dtype=str(latent.dtype),
+              latent_max_abs=latent.float().abs().max().item(),
+              downsample_factor=encoder.downsample_factor))
+    if encode_launches != ENCODER_ITEMS:
+        raise AssertionError(f"ae_encode: {encode_launches} item launches, "
+                             f"expected {ENCODER_ITEMS}")
+    if (tuple(latent.shape) != shape or not torch.isfinite(latent).all()
+            or latent.abs().max() > 1.0):
+        raise AssertionError(f"ae_encode: latent {tuple(latent.shape)} "
+                             "not finite, bounded and of the stated shape")
+    if not same:
+        raise AssertionError("ae_encode: two encodes of the same audio "
+                             "differ")
+    decode_launches, _ = task_sample_runs(
+        "ae_decode",
+        lambda steps, gen: model.decode(latent, num_steps=steps,
+                                        generator=gen),
+        2 * sum(ITEMS) * NUM_STEPS, (1, 2, LENGTH), item_batch=1,
+        inject_depth=INJECT_DEPTH)
+    phase_profile("ae_decode_profile",
+                  lambda: model.decode(latent, num_steps=2), steps=2)
+    train = phase_train(model, "ae_train",
+                        items_per_pass=2 * sum(ITEMS) + ENCODER_ITEMS)
+    return encode_launches, decode_launches, train
 
 
 def main() -> int:
@@ -1350,11 +1839,15 @@ def main() -> int:
     bwd_rows, bwd_train_rows = phase_kernel_backward_vs_plain(flush)
     nomod_bwd_rows, nomod_bwd_train_rows = (
         phase_kernel_backward_vs_plain_nomod(flush))
+    (enc_rows, batch16_rows, enc_bwd_rows, enc_bwd_train_rows,
+     batch16_bwd_rows) = phase_kernel_vs_plain_tasks(flush)
     del flush
     phase_small_reference()
     phase_train_small()
     phase_cond_small_reference()
     phase_sampler_small_reference()
+    phase_dsp_small_reference()
+    phase_task_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
@@ -1419,6 +1912,21 @@ def main() -> int:
     ar_train_launches = phase_train(model, "ar_train", channels=1,
                                     length=AR_LENGTH)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The task models, each freed before the next is built: the upsampler,
+    # the vocoder (its train step runs the items at batch 16) and the
+    # autoencoder (its encoder's items without modulation).
+    up_launches, up_train_launches = phase_upsampler(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    voc_launches, voc_train_launches = phase_vocoder(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc_launches, dec_launches, ae_train_launches = phase_autoencoder(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Per pass of the net at batch 1: each level's per-item bf16 time times
     # its items per pass.
@@ -1442,13 +1950,22 @@ def main() -> int:
                 "library_ms": per_pass("library_ms")}
 
     def train_sums(train_rows, prefix):
+        keys = ("kernel_ms", "library_ms", "bound_ms") + (
+            ("plain_ms",) if all("plain_ms" in r for r in train_rows) else ())
         return {f"{prefix}_{key}": sum(r[key] * r["items_per_forward"]
                                        for r in train_rows)
-                for key in ("kernel_ms", "library_ms", "bound_ms")}
+                for key in keys}
 
     guided = summary("", "", "", guided_rows)
     nomod = summary("", "", "", nomod_rows)
     nomod_bwd = summary("", "", "", nomod_bwd_rows)
+    encoder_fwd = summary("", "", "", enc_rows)
+    encoder_bwd = summary("", "", "", enc_bwd_rows)
+    batch16_fwd = summary("", "", "", batch16_rows)
+    task_launches = dict(upsampler_launches=up_launches,
+                         vocoder_launches=voc_launches,
+                         ae_encode_launches=enc_launches,
+                         ae_decode_launches=dec_launches)
     per_pass_keys = ("ms", "plain_ms", "bound_ms", "library_ms",
                      "max_abs_err")
     print(smi)
@@ -1463,9 +1980,16 @@ def main() -> int:
                 t5_guided_dpm_launches=t5_launches,
                 ar_sample_launches=ar_launches,
                 ar_train_launches=ar_train_launches[0],
+                **task_launches,
+                upsampler_train_launches=up_train_launches[0],
+                vocoder_train_launches=voc_train_launches[0],
+                ae_train_launches=ae_train_launches[0],
                 conv_source=CONV_SOURCE,
                 **{f"guided_batch_{k}": guided[k] for k in per_pass_keys},
-                **{f"nomod_{k}": nomod[k] for k in per_pass_keys}),
+                **{f"nomod_{k}": nomod[k] for k in per_pass_keys},
+                **{f"encoder_nomod_{k}": encoder_fwd[k]
+                   for k in per_pass_keys},
+                **{f"batch16_{k}": batch16_fwd[k] for k in per_pass_keys}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,
@@ -1481,7 +2005,16 @@ def main() -> int:
                     r["bound_ms"] * r["items_per_forward"]
                     for r in bwd_train_rows),
                 **{f"nomod_{k}": nomod_bwd[k] for k in per_pass_keys},
-                **train_sums(nomod_bwd_train_rows, "nomod_train_batch"))]})
+                **train_sums(nomod_bwd_train_rows, "nomod_train_batch"),
+                upsampler_train_launches=up_train_launches[1],
+                vocoder_train_launches=voc_train_launches[1],
+                ae_train_launches=ae_train_launches[1],
+                **{f"encoder_nomod_{k}": encoder_bwd[k]
+                   for k in per_pass_keys},
+                **train_sums(enc_bwd_train_rows, "encoder_nomod_train_batch"),
+                **train_sums(batch16_bwd_rows, "batch16"),
+                batch16_max_rel_err=max(r["max_rel_err"]
+                                        for r in batch16_bwd_rows))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

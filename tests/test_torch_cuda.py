@@ -374,3 +374,101 @@ def test_conditioned_net_on_card_matches_cpu(cuda_device):
         assert fused_resnet_item.launches - before == launches
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() < 1e-3, reuse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,length,batch,use_modulation", [
+    (512, 1024, 1, False), (512, 1024, 8, False), (8, 2**16, 16, True),
+    (256, 2048, 16, True), (1024, 128, 16, True)])
+def test_bf16_task_model_shapes(cuda_device, channels, length, batch,
+                                use_modulation):
+    """The task models' new item shapes: the autoencoder encoder's
+    no-modulation item (C = 512, L = 1,024) at batch 1 and 8, and the
+    modulated item at the vocoder train step's batch of 16 (levels 0, 4
+    and 8). The forward at two ulps and every gradient at 2e-2 of the
+    plain version's, each bit-identical on a second call."""
+    args = item_inputs(channels, length, batch, channels, torch.bfloat16,
+                       cuda_device)
+    g = item_inputs(channels, length, batch, channels + 1, torch.bfloat16,
+                    cuda_device)[0]
+    n = 13 if use_modulation else 9
+    kw = dict(groups=GROUPS, use_modulation=use_modulation)
+    out, again = (fused_resnet_item(*args[:n], **kw) for _ in range(2))
+    ref = resnet_item_reference(*args[:n], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * ref.float().abs().max().item(), err
+    got = item_gradients(fused_resnet_item, args, g, use_modulation)
+    second = item_gradients(fused_resnet_item, args, g, use_modulation)
+    want = item_gradients(resnet_item_reference, args, g, use_modulation)
+    for name, grad in got.items():
+        assert torch.equal(grad, second[name]), name
+        scale = want[name].float().abs().max().item()
+        if name == "c1b" and channels == GROUPS:
+            scale = want["c2b"].float().abs().max().item()
+        err = (grad.float() - want[name].float()).abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_task_models_on_card_match_cpu(cuda_device):
+    """A small upsampler, vocoder and autoencoder (the configs of
+    tests/test_task_models.py): 3-step samples on the card against the
+    same weights on the CPU from the same noise (float32, max-abs 1e-3),
+    the autoencoder's latent too; every extra module lives on the card."""
+    from unittest import mock
+
+    from audio_diffusion_torch import (DiffusionAE, DiffusionUpsampler,
+                                       DiffusionVocoder, MelEncoder1d)
+    from audio_diffusion_torch.diffusion import noise as noise_module
+
+    net = dict(channels=[8, 32, 64], factors=[1, 4, 2], items=[1, 1, 1],
+               modulation_features=64)
+    enc = dict(in_channels=2, channels=32, out_channels=4, factors=[2],
+               num_blocks=[1], mel_channels=16, mel_n_fft=64,
+               mel_sample_rate=16000)
+    builders = [
+        lambda dev: DiffusionUpsampler(net_t=UNetV0, in_channels=2,
+                                       upsample_factor=4, device=dev, **net),
+        lambda dev: DiffusionVocoder(net_t=UNetV0, mel_channels=16,
+                                     mel_n_fft=128, mel_sample_rate=16000,
+                                     mel_normalize_log=True, device=dev,
+                                     **net),
+        lambda dev: DiffusionAE(net_t=UNetV0, in_channels=2, inject_depth=2,
+                                encoder=MelEncoder1d(device=dev, **enc),
+                                channels=[8, 16, 32], factors=[1, 4, 8],
+                                items=[1, 1, 1], modulation_features=32,
+                                device=dev)]
+    rs = np.random.default_rng(5)
+    audio = torch.from_numpy(rs.standard_normal((1, 2, 1024)).astype(
+        np.float32))
+    start = torch.from_numpy(rs.standard_normal((2, 2, 1024)).astype(
+        np.float32))
+
+    def normal(generator, shape, dtype, device):
+        return start.reshape(-1)[:int(np.prod(shape))].reshape(
+            tuple(shape)).to(dtype=dtype, device=device)
+
+    for build in builders:
+        cpu, gpu = build("cpu"), build(cuda_device)
+        gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+        for prefix, module in gpu.extras.items():
+            module.load_state_dict(cpu.extras[prefix].state_dict())
+            assert all(p.is_cuda for p in module.parameters())
+        outs = []
+        for model in (cpu, gpu):
+            x = audio.to(model.device)
+            with mock.patch.object(noise_module, "normal", normal):
+                if isinstance(model, DiffusionUpsampler):
+                    outs.append(model.sample(x[..., ::4], num_steps=3))
+                elif isinstance(model, DiffusionVocoder):
+                    outs.append(model.sample(model.to_spectrogram(x),
+                                             num_steps=3))
+                else:
+                    latent = model.encode(x)
+                    outs.append(torch.cat([latent.flatten(), model.decode(
+                        latent, num_steps=3).flatten()]))
+        want, got = outs[0], outs[1].cpu()
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert (got - want).abs().max().item() < 1e-3

@@ -6,7 +6,9 @@ import sys
 import pytest
 import torch
 
-from audio_diffusion_torch import DiffusionModel, UNetV0
+from audio_diffusion_torch import (DiffusionModel, DiffusionUpsampler,
+                                   DiffusionVocoder, LTPlugin, MelEncoder1d,
+                                   UNetV0)
 
 torch.set_num_threads(2)
 
@@ -16,7 +18,10 @@ CFG = dict(in_channels=2, channels=[8, 16], factors=[1, 2], items=[1, 1],
 
 def test_import_loads_no_jax():
     code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.convert, "
-            "audio_diffusion_torch.ops.text;"
+            "audio_diffusion_torch.ops.text, audio_diffusion_torch.dsp, "
+            "audio_diffusion_torch.losses, audio_diffusion_torch.ops.conv, "
+            "audio_diffusion_torch.models.encoders, "
+            "audio_diffusion_torch.models.tasks;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -42,3 +47,25 @@ def test_explicit_cpu_device():
     assert model.device.type == "cpu"
     out = model.sample(torch.zeros(1, 2, 64), num_steps=2)
     assert out.device.type == "cpu" and torch.isfinite(out).all()
+
+
+def test_task_model_extras_follow_the_model_device():
+    """Without a device the task models and the encoder raise where CUDA is
+    absent; with ``device="cpu"`` every extra module lives there."""
+    enc = dict(in_channels=2, channels=16, out_channels=4, mel_channels=8,
+               mel_n_fft=64, mel_sample_rate=16000)
+    voc = dict(mel_channels=8, mel_n_fft=64, mel_sample_rate=16000,
+               **{k: v for k, v in CFG.items() if k != "in_channels"})
+    if not torch.cuda.is_available():
+        for build in (lambda: MelEncoder1d(**enc),
+                      lambda: DiffusionVocoder(net_t=UNetV0, **voc),
+                      lambda: DiffusionUpsampler(net_t=UNetV0,
+                                                 upsample_factor=2, **CFG)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+    model = DiffusionVocoder(net_t=UNetV0, device="cpu", **voc)
+    assert model.to_flat.kernel.device.type == "cpu"
+    lt = DiffusionModel(net_t=LTPlugin(UNetV0, num_filters=2,
+                                       window_length=4, stride=2),
+                        device="cpu", **CFG)
+    assert all(p.device.type == "cpu" for p in lt.params.values())
