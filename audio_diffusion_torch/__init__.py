@@ -16,12 +16,17 @@ resampling, STFT, Griffin-Lim, ``MelSpectrogram``), the multi-resolution
 STFT loss, the net plugins ``LTPlugin`` and ``AppendChannelsPlugin`` and
 the task models ``DiffusionUpsampler``, ``DiffusionVocoder`` and
 ``DiffusionAE`` (with ``MelEncoder1d``, whose items run the kernels'
-no-modulation branch).
+no-modulation branch); the trainer (``train.Trainer``, with
+checkpoint/resume, LR schedules, clipping, EMA), the data pipeline
+(``data.AudioDataset``, ``data.DeviceCorpus``), activation checkpointing
+(``UNetV0(use_remat=True)``), ``train_state_from_jax`` to carry a JAX train
+state across, and the ``train``, ``sample`` and ``info`` commands of
+``python -m audio_diffusion_torch``.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from . import dsp, presets
-from .convert import params_from_jax, params_to_jax
+from .convert import params_from_jax, params_to_jax, train_state_from_jax
 from .diffusion import (ARVDiffusion, ARVSampler, Diffusion, Distribution,
                         DPMSampler, Inpainter, LinearSchedule, Sampler,
                         Schedule, SDESampler, UniformDistribution,
@@ -44,6 +49,7 @@ __all__ = [
     "dsp",
     "params_from_jax",
     "params_to_jax",
+    "train_state_from_jax",
     "DiffusionModel",
     "DiffusionAR",
     "generate_long",

@@ -25,6 +25,16 @@ and ``fixed_embedding`` keep their layout. Port names are the JAX paths
 joined by dots, with a Dense's ``kernel`` named ``weight``. Both directions
 are strict: a leftover or a missing leaf raises.
 
+``train_state_from_jax(state)`` takes the JAX ``TrainState`` (its fields
+``step``, ``params``, ``opt_state``, ``ema``; arrays as numpy or JAX
+arrays) of an ``optax.adam``/``adamw`` (optionally chained after
+``clip_by_global_norm`` or with a schedule) and returns the content that
+``train.Trainer.load_state_dict`` takes: the step, the parameters, Adam's
+``exp_avg``/``exp_avg_sq``/``step`` per parameter from optax's
+``mu``/``nu``/``count``, and the EMA. The generator is left as the trainer
+has it (a threefry key has no torch counterpart). Strict as well: an
+optimizer state other than these raises.
+
 ``t5_params_from_flax(params)`` takes the Flax T5 encoder's parameter tree
 (``FlaxT5EncoderModel.params``) and returns the ``state_dict`` of
 ``ops.t5.T5EncoderStack``, also strictly.
@@ -38,7 +48,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-__all__ = ["params_from_jax", "params_to_jax", "t5_params_from_flax"]
+__all__ = ["params_from_jax", "params_to_jax", "t5_params_from_flax",
+           "train_state_from_jax"]
 
 _RESNET_LEAVES = ("gn1_scale", "gn1_bias", "conv1_kernel", "conv1_bias",
                   "gn2_scale", "gn2_bias", "conv2_kernel", "conv2_bias")
@@ -242,6 +253,55 @@ def params_to_jax(state: Mapping[str, Tensor]) -> dict:
         raise ValueError(f"params_to_jax: {sorted(set(state) ^ names)} "
                          "do not map onto the JAX tree")
     return tree
+
+
+def _optax_states(node, found: list) -> None:
+    """Collect optax's named states (tuples with ``_fields``) in a chain's
+    state, depth first."""
+    if hasattr(node, "_fields"):
+        found.append(node)
+    elif isinstance(node, (tuple, list)):
+        for child in node:
+            _optax_states(child, found)
+    else:
+        raise ValueError(f"train_state_from_jax: unexpected optimizer state "
+                         f"{type(node).__name__}")
+
+
+def train_state_from_jax(state) -> dict:
+    """JAX ``TrainState`` of an optax Adam(W) chain -> the content of
+    ``Trainer.load_state_dict`` (see the module docstring)."""
+    get = (state.get if isinstance(state, Mapping)
+           else lambda k: getattr(state, k))
+    found: list = []
+    _optax_states(get("opt_state"), found)
+    adam = [s for s in found if set(s._fields) == {"count", "mu", "nu"}]
+    other = [s for s in found if s._fields not in ((), ("count",))
+             and all(s is not a for a in adam)]
+    if len(adam) != 1 or other:
+        raise ValueError(
+            "train_state_from_jax: needs exactly one ScaleByAdamState and "
+            "no other state with arrays; found "
+            f"{[type(s).__name__ for s in found]}")
+    adam = adam[0]
+    count = int(np.asarray(adam.count))
+    for s in found:
+        if s._fields == ("count",) and int(np.asarray(s.count)) != count:
+            raise ValueError("train_state_from_jax: the schedule's count "
+                             f"{int(np.asarray(s.count))} is not Adam's "
+                             f"{count}")
+    params = params_from_jax(get("params"))
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    ema = get("ema")
+    return {
+        "step": int(np.asarray(get("step"))),
+        "params": params,
+        "optimizer": {name: {"step": torch.tensor(float(count)),
+                             "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                      for name in params},
+        "generator": None,
+        "ema": None if ema is None else params_from_jax(ema),
+    }
 
 
 def _t5_block(walk: _Walk, node: dict, prefix: str, first: bool) -> None:

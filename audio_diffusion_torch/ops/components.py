@@ -62,8 +62,13 @@ def UNetV0(
     item runs the fused kernels, forward and backward, on a CUDA tensor). Not
     ported yet, and raising ``NotImplementedError``: dim 2/3, the pretrained
     T5 encoder (``use_text_conditioning`` without a ``text_encoder``: its
-    ``t5-base`` weights are not in the repository), remat (activation
-    checkpointing) and ``channel_change="first_item"``.
+    ``t5-base`` weights are not in the repository) and
+    ``channel_change="first_item"``.
+
+    ``use_remat`` checkpoints each level's item stack (its activations are
+    recomputed in the backward); ``remat_policy`` is None (recompute
+    everything) or ``"dots_with_no_batch_dims_saveable"`` (keep the Dense
+    products); another name raises ``ValueError``.
     """
     if dim != 1:
         raise NotImplementedError(
@@ -85,15 +90,10 @@ def UNetV0(
             "the repository (ROADMAP: the pretrained T5 weights); pass a "
             "text_encoder such as ops.text.RandomT5TextEncoder or "
             "ops.text.StubTextEncoder, or condition with embedding=")
-    unported = {
-        "use_remat": (use_remat or remat_policy is not None,
-                      "trainer and data"),
-        "channel_change": (channel_change != "resample", "parity geometry"),
-    }
-    for name, (asked, item) in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"UNetV0 {name} is not ported yet (ROADMAP: {item})")
+    if channel_change != "resample":
+        raise NotImplementedError(
+            "UNetV0 channel_change is not ported yet (ROADMAP: parity "
+            "geometry)")
     if use_time_conditioning and not use_modulation:
         raise ValueError("use_time_conditioning requires use_modulation=True")
     if use_embedding_cfg and (embedding_max_length is None
@@ -114,7 +114,8 @@ def UNetV0(
         attention_heads=default(attention_heads, 8),
         attention_features=default(attention_features, 64),
         resnet_groups=resnet_groups, use_modulation=use_modulation,
-        modulation_features=modulation_features, **common)
+        modulation_features=modulation_features, use_remat=use_remat,
+        remat_policy=remat_policy, **common)
     if use_embedding_cfg:
         module = ClassifierFreeGuidanceWrapper(
             module, embedding_max_length, embedding_features, **common)

@@ -16,6 +16,7 @@ Dense transposes.
 """
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Optional, Sequence
@@ -23,6 +24,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from .attention import AttentionItem, CrossAttentionItem
 from .kernels import resnet as resnet_kernel
@@ -43,6 +45,30 @@ __all__ = [
     "ClassifierFreeGuidanceWrapper",
     "AppendChannelsWrapper",
 ]
+
+
+def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """Selective checkpointing that keeps the outputs of matrix products
+    without batch dimensions (``mm``/``addmm``: every Dense) and recomputes
+    the rest, as JAX's policy of that name. The fused resnet item launches
+    its kernel outside the dispatcher, so its forward runs again in the
+    backward, as a ``pallas_call`` does under the JAX policy."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# remat_policy names (jax.checkpoint_policies entries) the port supports;
+# None recomputes everything.
+REMAT_POLICIES = {
+    "dots_with_no_batch_dims_saveable": _dots_with_no_batch_dims_saveable,
+}
+
+
+def _check_remat_policy(name: Optional[str]) -> None:
+    if name is not None and name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; supported: None "
+                         f"(full recompute), {', '.join(REMAT_POLICIES)}")
 
 
 def _cast(t: Tensor, dtype) -> Tensor:
@@ -328,9 +354,13 @@ class XUNet(nn.Module):
                  embedding_features: Optional[int] = None,
                  attention_heads: int = 8, attention_features: int = 64,
                  resnet_groups: int = 8, use_modulation: bool = True,
-                 modulation_features: Optional[int] = None, dtype=None,
-                 param_dtype=torch.float32, device=None):
+                 modulation_features: Optional[int] = None,
+                 use_remat: bool = False, remat_policy: Optional[str] = None,
+                 dtype=None, param_dtype=torch.float32, device=None):
         super().__init__()
+        _check_remat_policy(remat_policy)
+        self.use_remat = use_remat
+        self.remat_policy = remat_policy
         cross_attentions = cross_attentions or [0] * len(channels)
         context_channels = context_channels or [0] * len(channels)
         if any(cross_attentions) and embedding_features is None:
@@ -371,6 +401,25 @@ class XUNet(nn.Module):
         self.out_kernel = new_param(3, c0, out_channels, **p)
         self.out_bias = new_param(out_channels, **p)
 
+    def _stack(self, name: str, h: Tensor, *args) -> Tensor:
+        """One level's item stack; with ``use_remat`` and gradients on,
+        under activation checkpointing (the counterpart of ``nn.remat(
+        ItemStack, policy=...)``): its activations are recomputed in the
+        backward, all of them or, with ``remat_policy``, all but the saved
+        products. The graph is the one without remat, so the gradients are
+        the same bits."""
+        stack = getattr(self, name)
+        if not (self.use_remat and torch.is_grad_enabled()):
+            return stack(h, *args)
+        context_fn = torch_checkpoint.noop_context_fn
+        if self.remat_policy is not None:
+            context_fn = functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                REMAT_POLICIES[self.remat_policy])
+        return torch_checkpoint.checkpoint(
+            stack, h, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=context_fn)
+
     def init_params(self, generator: Optional[torch.Generator]) -> None:
         nn.init.ones_(self.out_gn_scale)
         nn.init.zeros_(self.out_gn_bias)
@@ -406,8 +455,8 @@ class XUNet(nn.Module):
             skips = []
             for i in range(self.num_levels):
                 h = getattr(self, f"down_{i}")(h)
-                h = getattr(self, f"items_down_{i}")(h, features, embedding,
-                                                     contexts[i])
+                h = self._stack(f"items_down_{i}", h, features, embedding,
+                                contexts[i])
                 if i < self.num_levels - 1:
                     skips.append(h)
         enc = (h, tuple(skips))
@@ -415,8 +464,8 @@ class XUNet(nn.Module):
             if i < self.num_levels - 1:
                 skip = getattr(self, f"skip_{i}")
                 h = skip(h, skips.pop(), features)
-            h = getattr(self, f"items_up_{i}")(h, features, embedding,
-                                               contexts[i])
+            h = self._stack(f"items_up_{i}", h, features, embedding,
+                            contexts[i])
             h = getattr(self, f"up_{i}")(h)
 
         cast = lambda t: _cast(t, self.dtype)  # noqa: E731

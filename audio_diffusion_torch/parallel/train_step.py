@@ -119,6 +119,9 @@ def make_train_step(
     def single_step(state: TrainState, batch, cond):
         batch = dequant_pcm16(batch)
         loss, grads = grad_fn(state, batch, cond)
+        # Before the update: an optimizer may clip the gradients in place.
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
         leaves = list(state.params.values())
         for p, g in zip(leaves, grads):
             p.grad = g.to(p.dtype)
@@ -130,8 +133,6 @@ def make_train_step(
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, [p.detach() for p in leaves],
                                     alpha=1.0 - ema_decay)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm,
                 "step": state.step.clone()}

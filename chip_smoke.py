@@ -45,7 +45,18 @@ steps; Adam steps at batch 8 that train the encoder too). Before them the
 kernels are held against the plain version at those new shapes (the
 encoder's item, forward at batch 1, backward at 1 and 8; the modulated
 item at the nine levels at batch 16, forward and backward), and the DSP
-front end and small task models on the card against the CPU.
+front end and small task models on the card against the CPU. Then the
+training path as a user drives it: a small net trained with the
+``Trainer`` (warmup, cosine decay, clipping, EMA) on the card against the
+CPU; the ``Trainer`` on the flagship at batch 8 over a corpus of 8 stereo
+PCM16 files of 2^19 frames synthesized from a seed and held in a
+``DeviceCorpus`` (crop 2^18), with a checkpoint at step 2 that a fresh
+model and trainer resume from — the resumed run must give the straight
+run's bits — and its ms per step with the corpus on the card and with the
+host ``AudioDataset``; activation checkpointing (``use_remat``, full and
+with ``"dots_with_no_batch_dims_saveable"``) bit-equal to the net without
+it; and ``python -m audio_diffusion_torch`` ``train`` (2 steps, the corpus
+on the card), ``sample`` (50 steps) and ``info --params`` as subprocesses.
 
     python3 chip_smoke.py
 
@@ -74,7 +85,10 @@ levels (``nomod_train_batch_*`` at batch 8), and ``dpm_launches`` (1,050),
 autoencoder) the task paths'. The ``encoder_nomod_*`` keys are the
 encoder's per-pass sums (12 items at C = 512, L = 1,024; the backward's
 ``encoder_nomod_train_batch_*`` at batch 8) and the ``batch16_*`` keys
-the flagship levels' per-pass sums at batch 16.
+the flagship levels' per-pass sums at batch 16. ``trainer_launches``
+counts the Trainer's 3 straight flagship steps (42 per step each way), and
+``remat_launches`` the launches per step with ``use_remat`` (84 forward:
+the forward kernel runs again in the backward's recompute; 42 backward).
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2, with the same bars.
@@ -114,8 +128,10 @@ import gc
 import json
 import math
 import pstats
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1803,6 +1819,370 @@ def phase_autoencoder(torch):
     return encode_launches, decode_launches, train
 
 
+def phase_trainer_small_reference():
+    """Three Trainer steps of a small net in f32 on the card (kernels,
+    forward and backward) against the same weights on the CPU: warmup and
+    cosine decay, clipping (every step's norm is above it), EMA, the same
+    batches, σ and noise from numpy fed per step as (x, cond) batches.
+    Parameters and EMA within 1e-4 (max-abs). The net's first level has two
+    channels per group (16 channels, 8 groups), so no bias is removed by a
+    GroupNorm and no gradient is rounding noise alone; at lr 2e-5 a sign
+    flip of Adam's step in both of the two updates with a nonzero LR would
+    still stay inside the bar."""
+    import types
+
+    import numpy as np
+    import torch
+    from audio_diffusion_torch import DiffusionModel, UNetV0
+    from audio_diffusion_torch.diffusion.vdiffusion import v_loss
+    from audio_diffusion_torch.train import Trainer, TrainerConfig
+
+    cfg = dict(SMALL_CFG, channels=[16, 32, 64])
+    rs = np.random.default_rng(8)
+    batches = [(rs.uniform(-1, 1, (2, 2, 256)).astype(np.float32),
+                dict(sigmas=rs.uniform(0.1, 0.9, 2).astype(np.float32),
+                     noise=rs.standard_normal((2, 2, 256)).astype(
+                         np.float32))) for _ in range(3)]
+    tcfg = dict(learning_rate=2e-5, lr_schedule="cosine", warmup_steps=1,
+                total_steps=4, max_grad_norm=0.5, ema_decay=0.9,
+                log_every=1)
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=2, **cfg)
+    fill_zero_params(cpu)
+    gpu = DiffusionModel(net_t=UNetV0, **cfg)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    out = []
+    for model in (cpu, gpu):
+        def loss_fn(params, generator, batch, sigmas, noise, model=model):
+            return v_loss(model.net, params, batch, sigmas, noise)
+
+        shim = types.SimpleNamespace(loss=loss_fn, params=model.params,
+                                     device=model.device,
+                                     generator=model.generator)
+        logs = []
+        trainer = Trainer(shim, TrainerConfig(**tcfg), log_fn=logs.append)
+        trainer.fit(iter(batches), num_steps=3)
+        out.append((
+            logs, {n: p.detach().cpu() for n, p in model.params.items()},
+            {n: e.cpu() for n, e in trainer.ema_params.items()}))
+    (l_cpu, p_cpu, e_cpu), (l_gpu, p_gpu, e_gpu) = out
+    err = max((p_cpu[n] - p_gpu[n]).abs().max().item() for n in p_cpu)
+    ema_err = max((e_cpu[n] - e_gpu[n]).abs().max().item() for n in e_cpu)
+    emit(dict(phase="trainer_small_reference", dtype="float32", steps=3,
+              trainer=tcfg, cpu_logs=l_cpu, card_logs=l_gpu,
+              max_param_abs_err=err, max_ema_abs_err=ema_err,
+              tolerance=1e-4))
+    if not (err <= 1e-4 and ema_err <= 1e-4):
+        raise AssertionError(f"trainer_small_reference: parameters {err}, "
+                             f"EMA {ema_err} from the CPU's")
+
+
+def synth_corpus(root: Path, files: int = 8, frames: int = 2**19) -> Path:
+    """``files`` stereo PCM16 WAVs of ``frames`` frames, from a numpy seed,
+    written with the port's ``wav_write``."""
+    import numpy as np
+    from audio_diffusion_torch.data import wav_write
+
+    rs = np.random.default_rng(17)
+    wavs = root / "wavs"
+    wavs.mkdir()
+    t = np.arange(frames) / 48000.0
+    for i in range(files):
+        tone = 0.3 * np.sin(2 * np.pi * (110.0 * (i + 1)) * t)
+        audio = tone + 0.05 * rs.standard_normal((2, frames))
+        wav_write(wavs / f"take_{i}.wav", audio.astype(np.float32), 48000)
+    return wavs
+
+
+def trainer_state_equal(a, b):
+    """The names of the tensors of two Trainer.state_dict()s that differ
+    (parameters, EMA, Adam's moments and count)."""
+    import torch
+
+    bad = [f"params/{n}" for n in a["params"]
+           if not torch.equal(a["params"][n], b["params"][n])]
+    bad += [f"ema/{n}" for n in a["ema"]
+            if not torch.equal(a["ema"][n], b["ema"][n])]
+    bad += [f"optimizer/{n}/{k}" for n, st in a["optimizer"].items()
+            for k, v in st.items() if not torch.equal(v, b["optimizer"][n][k])]
+    if a["step"] != b["step"] or set(a["optimizer"]) != set(b["optimizer"]):
+        bad.append("step or optimizer names")
+    return bad
+
+
+def phase_trainer_flagship(torch, root: Path):
+    """The Trainer on the flagship (``presets.UNCONDITIONAL_48K``, bf16,
+    batch 8): a synthesized corpus of 8 stereo PCM16 files of 2^19 frames
+    in a ``DeviceCorpus`` (crop 2^18); warmup 2 and cosine over 8 steps,
+    ``max_grad_norm`` 1.0, EMA 0.999, a checkpoint at step 2 (one kept).
+    The resume gate: 3 straight steps on ``batch_at(0..2)`` against 2
+    steps, the checkpoint, a fresh model and Trainer restored from it, and
+    step 3 on ``batch_at(2)`` — the same bits in the parameters, the EMA
+    and the moments. Then ms per step (median of 3 after a warm-up) with
+    the ``DeviceCorpus`` and with the host ``AudioDataset`` on the same
+    files, peak memory, the item launches (counts set to 0 just before the
+    3 straight steps) and a profile of one step. Returns the launches
+    (forward, backward) of the 3 straight steps."""
+    from audio_diffusion_torch.data import AudioDataset, DeviceCorpus
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.train import Trainer, TrainerConfig
+
+    item = resnet.fused_resnet_item
+    wavs = synth_corpus(root)
+    dc = DeviceCorpus(wavs, crop_frames=LENGTH, batch_size=TRAIN_BATCH)
+    ckpt = root / "ckpts"
+    cfg = dict(learning_rate=1e-4, lr_schedule="cosine", warmup_steps=2,
+               total_steps=8, max_grad_norm=1.0, ema_decay=0.999,
+               checkpoint_every=2, max_checkpoints=1, log_every=1000)
+    timings = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timings[name] = time.perf_counter() - t0
+        return wrapper
+
+    def step_on(trainer, step):
+        trainer.fit(iter([dc.batch_at(step)]), num_steps=1)
+
+    # The interrupted run: 2 steps and the checkpoint, then the model freed.
+    model = build_flagship(torch)
+    trainer = Trainer(model, TrainerConfig(checkpoint_dir=str(ckpt), **cfg),
+                      log_fn=lambda s: None)
+    with mock.patch.object(Trainer, "state_dict",
+                           timed("host_copy_s", Trainer.state_dict)), \
+            mock.patch.object(Trainer, "_write",
+                              timed("write_s", Trainer._write)):
+        for step in range(2):
+            step_on(trainer, step)
+    saved = sorted(p.name for p in ckpt.iterdir())
+    size = (ckpt / "2" / "state.pt").stat().st_size
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_flagship(torch)
+    trainer = Trainer(model, TrainerConfig(checkpoint_dir=str(ckpt), **cfg),
+                      log_fn=lambda s: None)
+    t0 = time.perf_counter()
+    restored = trainer.restore_latest()
+    restore_s = time.perf_counter() - t0
+    step_on(trainer, 2)
+    resumed = trainer.state_dict()
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+
+    # The straight run: the main path, counts set to 0 just before.
+    model = build_flagship(torch)
+    trainer = Trainer(model, TrainerConfig(**cfg), log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    item.launches = item.backward_launches = 0
+    for step in range(3):
+        step_on(trainer, step)
+    torch.cuda.synchronize()
+    launches = (item.launches, item.backward_launches)
+    straight = trainer.state_dict()
+    differ = trainer_state_equal(straight, resumed)
+    del resumed
+
+    def ms_per_step(feed):
+        step_on_feed = lambda: trainer.fit(feed, num_steps=1)  # noqa: E731
+        step_on_feed()  # warm-up
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_on_feed()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return sorted(runs)[1], runs
+
+    device_ms, device_runs = ms_per_step(iter(dc))
+    host = AudioDataset(wavs, crop_frames=LENGTH, batch_size=TRAIN_BATCH)
+    host_feed = iter(host)
+    host_ms_, host_runs = ms_per_step(host_feed)
+    host_feed.close()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in trainer.fit(
+        iter(dc), num_steps=1).items()}
+    emit(dict(phase="trainer_flagship", batch=TRAIN_BATCH, length=LENGTH,
+              dtype="bfloat16", trainer=cfg,
+              corpus=dict(files=len(dc.files), frames=dc.frames[0],
+                          dtype=str(dc.dtype), device_bytes=dc.device_bytes),
+              checkpoint=dict(saved=saved, bytes=size, gb=size / 1e9,
+                              host_copy_s=timings.get("host_copy_s"),
+                              write_s=timings.get("write_s"),
+                              restored_step=restored, restore_s=restore_s),
+              resume_bit_exact=not differ, differing=differ[:5],
+              forward_item_launches=launches[0],
+              backward_item_launches=launches[1],
+              expected_launches=2 * sum(ITEMS) * 3,
+              ms_per_step_device_corpus=device_ms,
+              ms_per_step_device_corpus_runs=device_runs,
+              ms_per_step_host_dataset=host_ms_,
+              ms_per_step_host_dataset_runs=host_runs,
+              host_dataset_dtype=str(host.dtype),
+              samples_per_s=TRAIN_BATCH / device_ms * 1e3,
+              peak_memory_bytes=peak, peak_gb=peak / 1e9,
+              metrics=metrics, step=straight["step"]))
+    if restored != 2 or saved != ["2"]:
+        raise AssertionError(f"trainer_flagship: checkpoints {saved}, "
+                             f"restored step {restored}")
+    if differ:
+        raise AssertionError(f"trainer_flagship: the resumed run differs "
+                             f"from the straight one in {len(differ)} "
+                             f"tensors, first {differ[:5]}")
+    if launches != (2 * sum(ITEMS) * 3,) * 2:
+        raise AssertionError(f"trainer_flagship: {launches} item launches "
+                             "in 3 steps, expected 42 each per step")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"trainer_flagship: metrics {metrics}")
+    phase_profile("trainer_flagship_profile",
+                  lambda: trainer.fit(iter(dc), num_steps=1), steps=1,
+                  batch=TRAIN_BATCH)
+    del model, trainer, straight
+    return launches
+
+
+def phase_remat_flagship(torch):
+    """``use_remat=True`` on the flagship (bf16, batch 8), full recompute
+    and with ``"dots_with_no_batch_dims_saveable"``: the loss and every
+    gradient against the net without remat on the same parameters, batch
+    and generator (bit-equal); then Adam steps as ``phase_train`` takes
+    them (a warm-up, 3 timed): ms per step, peak memory and item launches
+    per step (the forward kernel runs again in the backward: 84 forward,
+    42 backward). Returns {variant: (forward, backward) launches per
+    step}."""
+    from audio_diffusion_torch import make_train_step
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    item = resnet.fused_resnet_item
+    batch = host_audio(45, TRAIN_BATCH)
+    per_pass = 2 * sum(ITEMS)
+    base = None
+    rows, counts = [], {}
+    for name, remat in [("none", {}), ("full", dict(use_remat=True)),
+                        ("dots", dict(use_remat=True, remat_policy=(
+                            "dots_with_no_batch_dims_saveable")))]:
+        from audio_diffusion_torch import DiffusionModel, UNetV0, presets
+
+        model = DiffusionModel(net_t=UNetV0, **presets.UNCONDITIONAL_48K,
+                               dtype=torch.bfloat16, seed=0, **remat)
+        fill_zero_params(model)
+        leaves = list(model.params.values())
+        gen = torch.Generator(device="cuda")
+        loss = model.loss(model.params, gen.manual_seed(46), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        if base is None:
+            base = (loss.detach(), grads)
+            equal, differ = True, []
+        else:
+            differ = [n for n, g, g0 in zip(model.params, grads, base[1])
+                      if not torch.equal(g, g0)]
+            equal = torch.equal(loss, base[0]) and not differ
+        del grads
+        init, step = make_train_step(
+            model.loss, functools.partial(torch.optim.Adam, lr=1e-4))
+        state = init(model.params, gen.manual_seed(47))
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        item.launches = item.backward_launches = 0
+        runs = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        counts[name] = (item.launches // TRAIN_STEPS,
+                        item.backward_launches // TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append(dict(remat=name, loss=loss.item(), bit_equal=equal,
+                         differing=differ[:5], ms_per_step=sorted(runs)[1],
+                         ms_per_step_runs=runs,
+                         forward_launches_per_step=counts[name][0],
+                         backward_launches_per_step=counts[name][1],
+                         peak_memory_bytes=peak, peak_gb=peak / 1e9))
+        del model, state, leaves, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="remat_flagship", batch=TRAIN_BATCH, length=LENGTH,
+              dtype="bfloat16", rows=rows))
+    for row in rows:
+        want = (2 * per_pass if row["remat"] != "none" else per_pass,
+                per_pass)
+        got = (row["forward_launches_per_step"],
+               row["backward_launches_per_step"])
+        if got != want:
+            raise AssertionError(f"remat_flagship {row['remat']}: {got} "
+                                 f"item launches per step, expected {want}")
+        if not row["bit_equal"]:
+            raise AssertionError(f"remat_flagship {row['remat']}: loss or "
+                                 f"gradients differ ({row['differing']})")
+    return counts
+
+
+def phase_cli_train_sample(root: Path):
+    """``python -m audio_diffusion_torch`` as a user runs it, on the card:
+    ``train`` (the flagship preset, 2 steps at batch 8, crop 2^18, the
+    corpus on the device), ``sample`` (one 50-step sample of 2^18) and
+    ``info --params``; each must exit 0, the WAV read back as finite stereo
+    of 2^18 frames, ``info`` count 366.6 M parameters."""
+    import numpy as np
+    from audio_diffusion_torch.data import wav_probe, wav_read
+
+    wavs = root / "wavs"
+    if not wavs.exists():
+        synth_corpus(root)
+    run, smp = root / "run", root / "samples"
+    repo = Path(__file__).resolve().parent
+    commands = {
+        "train": ["train", "--data", str(wavs), "--preset",
+                  "UNCONDITIONAL_48K", "--steps", "2", "--batch",
+                  str(TRAIN_BATCH), "--crop", str(LENGTH),
+                  "--data-placement", "device", "--log-every", "1",
+                  "--out", str(run)],
+        "sample": ["sample", "--model", str(run / "model"), "--num", "1",
+                   "--steps", str(NUM_STEPS), "--length", str(LENGTH),
+                   "--out", str(smp)],
+        "info": ["info", "--run", str(run), "--params"],
+    }
+    results = {}
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audio_diffusion_torch", *argv],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        results[name] = dict(rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             stdout=proc.stdout.strip().splitlines()[-6:],
+                             stderr=proc.stderr.strip().splitlines()[-6:])
+        if proc.returncode != 0:
+            emit(dict(phase="cli_train_sample", **results))
+            raise AssertionError(f"cli_train_sample: {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    wav = smp / "sample_0.wav"
+    audio = wav_read(wav)
+    info = [ln for ln in results["info"]["stdout"]
+            if ln.startswith("parameters:")]
+    emit(dict(phase="cli_train_sample", **results,
+              wav=dict(probe=list(wav_probe(wav)),
+                       finite=bool(np.isfinite(audio).all()),
+                       std=float(audio.std())),
+              parameters_line=info))
+    if wav_probe(wav)[:3] != (2, 48000, LENGTH) or not np.isfinite(
+            audio).all():
+        raise AssertionError(f"cli_train_sample: {wav} is "
+                             f"{wav_probe(wav)}, finite "
+                             f"{np.isfinite(audio).all()}")
+    if not info or not info[0].startswith("parameters: 366.6 M"):
+        raise AssertionError(f"cli_train_sample: info printed {info}")
+
+
 def main() -> int:
     import torch
 
@@ -1844,6 +2224,7 @@ def main() -> int:
     del flush
     phase_small_reference()
     phase_train_small()
+    phase_trainer_small_reference()
     phase_cond_small_reference()
     phase_sampler_small_reference()
     phase_dsp_small_reference()
@@ -1928,6 +2309,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # The Trainer and its data pipeline on the flagship (checkpoint and
+    # resume, the corpus on the card and on the host), activation
+    # checkpointing, and the command line as a user runs it; the corpus,
+    # the checkpoint and the run live in a temporary directory.
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        trainer_launches = phase_trainer_flagship(torch, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat_launches = phase_remat_flagship(torch)
+        phase_cli_train_sample(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
     # Per pass of the net at batch 1: each level's per-item bf16 time times
     # its items per pass.
     def summary(name, source, replaces, level_rows, **counts):
@@ -1984,6 +2379,8 @@ def main() -> int:
                 upsampler_train_launches=up_train_launches[0],
                 vocoder_train_launches=voc_train_launches[0],
                 ae_train_launches=ae_train_launches[0],
+                trainer_launches=trainer_launches[0],
+                remat_launches={k: v[0] for k, v in remat_launches.items()},
                 conv_source=CONV_SOURCE,
                 **{f"guided_batch_{k}": guided[k] for k in per_pass_keys},
                 **{f"nomod_{k}": nomod[k] for k in per_pass_keys},
@@ -2009,6 +2406,8 @@ def main() -> int:
                 upsampler_train_launches=up_train_launches[1],
                 vocoder_train_launches=voc_train_launches[1],
                 ae_train_launches=ae_train_launches[1],
+                trainer_launches=trainer_launches[1],
+                remat_launches={k: v[1] for k, v in remat_launches.items()},
                 **{f"encoder_nomod_{k}": encoder_bwd[k]
                    for k in per_pass_keys},
                 **train_sums(enc_bwd_train_rows, "encoder_nomod_train_batch"),

@@ -472,3 +472,114 @@ def test_task_models_on_card_match_cpu(cuda_device):
         want, got = outs[0], outs[1].cpu()
         assert torch.isfinite(got).all() and got.shape == want.shape
         assert (got - want).abs().max().item() < 1e-3
+
+
+def _pcm16_corpus(path, n_files=3, frames=400):
+    """PCM16 files whose samples encode (file, position)."""
+    import wave
+
+    path.mkdir()
+    for i in range(n_files):
+        data = np.stack([i * 1000 + np.arange(frames)] * 2)
+        data[1] += 7
+        with wave.open(str(path / f"f{i}.wav"), "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(8000)
+            w.writeframes(np.ascontiguousarray(data.T.astype("<i2"))
+                          .tobytes())
+    return path
+
+
+@pytest.mark.cuda
+def test_device_corpus_on_card(cuda_device, tmp_path):
+    """The corpus lives on the card as int16 and every crop is a window of
+    a file, pure in the step."""
+    from audio_diffusion_torch.data import DeviceCorpus
+
+    d = _pcm16_corpus(tmp_path / "corpus")
+    dc = DeviceCorpus(d, crop_frames=64, batch_size=32, seed=3)
+    assert dc._corpus.is_cuda and dc._corpus.dtype == torch.int16
+    batch = dc.batch_at(4)
+    assert batch.is_cuda and batch.shape == (32, 2, 64)
+    assert torch.equal(batch, dc.batch_at(4))
+    rows = batch.cpu().numpy()
+    starts = rows[:, 0, :1]
+    assert (rows[:, 0] == starts + np.arange(64)).all()
+    assert (rows[:, 1] == rows[:, 0] + 7).all()
+    assert ((starts % 1000) <= 400 - 64).all()
+
+
+TRAIN_NET = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
+                 items=[1, 2, 1], attentions=[0, 0, 1], attention_heads=4,
+                 attention_features=8, modulation_features=64,
+                 dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_bit_exact_on_card(cuda_device, tmp_path):
+    """3 straight Trainer steps (warmup, cosine, clipping, EMA) against 2,
+    a checkpoint, a fresh model and trainer restored from it, and 1 more:
+    the same bits in the parameters, the EMA and the moments."""
+    from audio_diffusion_torch.data import DeviceCorpus, wav_write
+    from audio_diffusion_torch.train import Trainer, TrainerConfig
+
+    rs = np.random.default_rng(0)
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(2):
+        wav_write(wavs / f"f{i}.wav", rs.uniform(-.5, .5, (2, 2048)), 16000)
+    dc = DeviceCorpus(wavs, crop_frames=1024, batch_size=4)
+    cfg = dict(learning_rate=1e-3, lr_schedule="cosine", warmup_steps=1,
+               total_steps=5, max_grad_norm=0.5, ema_decay=0.9,
+               log_every=100, checkpoint_every=2, max_checkpoints=1)
+
+    def trainer(**extra):
+        return Trainer(DiffusionModel(net_t=UNetV0, **TRAIN_NET),
+                       TrainerConfig(**cfg, **extra), log_fn=lambda s: None)
+
+    straight = trainer()
+    straight.fit((dc.batch_at(i) for i in range(3)), num_steps=3)
+    first = trainer(checkpoint_dir=str(tmp_path / "ck"))
+    first.fit((dc.batch_at(i) for i in range(2)), num_steps=2)
+    del first
+    resumed = trainer(checkpoint_dir=str(tmp_path / "ck"))
+    assert resumed.restore_latest() == 2
+    resumed.fit(iter([dc.batch_at(2)]), num_steps=1)
+    a, b = straight.state, resumed.state
+    for name, p in a.params.items():
+        assert torch.equal(p, b.params[name]), name
+        assert torch.equal(a.ema[name], b.ema[name]), name
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[p][k],
+                               b.optimizer.state[b.params[name]][k]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "dots_with_no_batch_dims_saveable"])
+def test_remat_bit_equal_on_card(cuda_device, policy):
+    """With use_remat the loss and every gradient are the bits of the net
+    without it; the forward kernel runs again in the backward (its launch
+    is outside the dispatcher, so no policy saves it): 2 x 8 forward and 8
+    backward item launches for the 8 items of a pass."""
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    gen = torch.Generator(device=cuda_device)
+    x = torch.randn(2, 2, 1024, device=cuda_device,
+                    generator=gen.manual_seed(1))
+    results = []
+    for remat in (False, True):
+        model = DiffusionModel(net_t=UNetV0, use_remat=remat,
+                               remat_policy=policy if remat else None,
+                               seed=4, **TRAIN_NET)
+        leaves = list(model.params.values())
+        item = resnet.fused_resnet_item
+        item.launches = item.backward_launches = 0
+        loss = model.loss(model.params, gen.manual_seed(2), x)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        results.append((loss, grads, item.launches, item.backward_launches))
+    (l0, g0, f0, b0), (l1, g1, f1, b1) = results
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert (f0, b0) == (8, 8) and (f1, b1) == (16, 8)

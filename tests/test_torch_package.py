@@ -21,7 +21,9 @@ def test_import_loads_no_jax():
             "audio_diffusion_torch.ops.text, audio_diffusion_torch.dsp, "
             "audio_diffusion_torch.losses, audio_diffusion_torch.ops.conv, "
             "audio_diffusion_torch.models.encoders, "
-            "audio_diffusion_torch.models.tasks;"
+            "audio_diffusion_torch.models.tasks, "
+            "audio_diffusion_torch.data, audio_diffusion_torch.train, "
+            "audio_diffusion_torch.cli, audio_diffusion_torch.__main__;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -191,12 +191,65 @@ def test_default_init_matches_flax_distributions():
 
 @pytest.mark.parametrize("kwargs", [
     dict(dim=2), dict(use_text_conditioning=True, text_encoder=None),
-    dict(use_remat=True), dict(channel_change="first_item")])
+    dict(channel_change="first_item")])
 def test_unported_options_raise(kwargs):
     cfg = {**CFG, **kwargs}
     dim = cfg.pop("dim", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNetV0(dim=dim, device="cpu", **cfg)
+
+
+REMAT_POLICIES = [None, "dots_with_no_batch_dims_saveable"]
+
+
+def remat_loss_and_grads(model, x, sigmas, noise):
+    from audio_diffusion_torch.diffusion.vdiffusion import v_loss
+
+    params = model.params
+    loss = v_loss(model.net, params, torch.from_numpy(x),
+                  torch.from_numpy(sigmas), torch.from_numpy(noise))
+    return loss.detach(), dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_matches_no_remat_and_jax(policy):
+    """Activation checkpointing (``use_remat``, full or with the named
+    policy) gives the loss and every gradient of the net without it, bit for
+    bit, and matches the JAX ``use_remat=True`` net within the float32 bars
+    of tests/test_torch_train.py: loss rel 1e-4, every gradient within 1e-3
+    of its leaf's largest value plus 1e-6·grad_norm."""
+    from test_torch_train import batch_sigma_noise, jax_loss_fn
+
+    remat = dict(use_remat=True, remat_policy=policy)
+    net, cfg, tree = jax_net_and_params(**remat)
+    x, sigmas, noise = batch_sigma_noise(13)
+    loss0, grads0 = remat_loss_and_grads(port_model(CFG, tree), x, sigmas,
+                                         noise)
+    model = port_model(cfg, tree)
+    assert model.net.module.inner.use_remat
+    loss, grads = remat_loss_and_grads(model, x, sigmas, noise)
+    assert torch.equal(loss, loss0)
+    assert all(torch.equal(grads[n], grads0[n]) for n in grads0)
+
+    loss_fn = jax_loss_fn(net)
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(p, None, jnp.asarray(x), sigmas=jnp.asarray(sigmas),
+                          noise=jnp.asarray(noise))))(tree)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-4)
+    want = params_from_jax(want)
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [w.norm() for w in want.values()])))
+    for name, w in want.items():
+        w = w.numpy()
+        err = np.abs(grads[name].numpy() - w).max()
+        assert err <= 1e-3 * np.abs(w).max() + 1e-6 * norm, name
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="dots_with_no_batch_dims_saveable"):
+        UNetV0(dim=1, device="cpu", use_remat=True,
+               remat_policy="nothing_saveable", **CFG)
 
 
 @pytest.mark.parametrize("kwargs", [
