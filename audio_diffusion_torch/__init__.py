@@ -21,7 +21,12 @@ checkpoint/resume, LR schedules, clipping, EMA), the data pipeline
 (``data.AudioDataset``, ``data.DeviceCorpus``), activation checkpointing
 (``UNetV0(use_remat=True)``), ``train_state_from_jax`` to carry a JAX train
 state across, and the ``train``, ``sample`` and ``info`` commands of
-``python -m audio_diffusion_torch``.
+``python -m audio_diffusion_torch``; and serving: the batching
+``GenerationService``, the HTTP server (``make_server``, ``wav_bytes``),
+int8/int4 weight-only quantization (``QTensor``, ``quantize_params``,
+``dequantize_params``, ``unpack_int4_leaves``), the exported sampler
+(``export_sampler``, ``load_sampler``, ``load_params``,
+``ArtifactSampler``) and the ``serve`` and ``export`` commands.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -33,6 +38,7 @@ from .diffusion import (ARVDiffusion, ARVSampler, Diffusion, Distribution,
                         UniformLambdaSchedule, VDiffusion, VInpainter,
                         VSampler, mse_loss)
 from .dsp import MelSpectrogram
+from .export import ArtifactSampler, export_sampler, load_params, load_sampler
 from .longform import generate_long
 from .losses import MultiResolutionSTFTLoss, multi_resolution_stft_loss
 from .models import (AdapterBase, DiffusionAE, DiffusionAR, DiffusionModel,
@@ -40,7 +46,11 @@ from .models import (AdapterBase, DiffusionAE, DiffusionAR, DiffusionModel,
                      MelEncoder1d, TanhBottleneck)
 from .ops import (AppendChannelsPlugin, LTPlugin, Net, UNetV0, XUNet,
                   cast_inference_params)
+from .ops.quant import (QTensor, dequantize_params, quantize_params,
+                        unpack_int4_leaves)
 from .parallel import TrainState, make_train_step
+from .serve import GenerationService
+from .server import make_server, wav_bytes
 
 __version__ = "0.1.0"
 
@@ -87,4 +97,15 @@ __all__ = [
     "TanhBottleneck",
     "MultiResolutionSTFTLoss",
     "multi_resolution_stft_loss",
+    "GenerationService",
+    "make_server",
+    "wav_bytes",
+    "QTensor",
+    "quantize_params",
+    "dequantize_params",
+    "unpack_int4_leaves",
+    "export_sampler",
+    "load_sampler",
+    "load_params",
+    "ArtifactSampler",
 ]

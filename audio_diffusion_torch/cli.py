@@ -7,6 +7,9 @@ describe a run (counterpart of audio_diffusion_tpu/cli.py)::
     python -m audio_diffusion_torch sample --model run1/model --num 4 \\
         --steps 25 --sampler dpm --length 262144 --out samples/
     python -m audio_diffusion_torch info --run run1/ --params
+    python -m audio_diffusion_torch serve --model run1/model --port 8000
+    python -m audio_diffusion_torch export --model run1/model --out art/
+    python -m audio_diffusion_torch serve --model run1/model --artifact art/
 
 ``--preset`` is a name from :mod:`audio_diffusion_torch.presets` or a path to
 a JSON file of UNetV0/DiffusionModel kwargs. The run directory holds
@@ -14,7 +17,7 @@ a JSON file of UNetV0/DiffusionModel kwargs. The run directory holds
 JAX CLI's), ``ckpts/<step>`` (the Trainer's checkpoints) and ``model`` (the
 port's ``model.save`` file; ``--init-from`` takes such a file). Every
 command runs on the CUDA card unless ``--device`` says otherwise (``cpu``).
-``distill``, ``export``, ``serve`` and ``eval`` are not ported yet.
+``distill`` and ``eval`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -45,8 +48,6 @@ _AE_INJECT_DEPTH = 6
 _UNPORTED = {
     "distill": "progressively distill a trained model",
     "eval": "score generated WAVs against a reference corpus",
-    "serve": "serve a trained model over HTTP",
-    "export": "export the sampling program",
 }
 
 
@@ -576,11 +577,138 @@ def _cmd_info(args) -> None:
               f"({n*4/1e9:.2f} GB f32 master)")
 
 
+def _cmd_serve(args) -> None:
+    """Serve a trained model over HTTP: concurrent POSTs microbatch into
+    fixed-size device batches (serve.py); results are quantized to PCM16 on
+    the card and returned as WAV bodies."""
+    from .serve import GenerationService
+    from .server import make_server
+
+    device = _device(args)
+    if args.artifact is not None:
+        # Deployment without the model's code: the exported step and the
+        # parameter file are the whole payload (export.py). Shapes, steps
+        # and batch are the artifact's; a mismatched request fails loudly.
+        ignored = [flag for flag, given in [
+            ("--steps", args.steps != 50), ("--sampler", args.sampler != "v"),
+            ("--dtype", args.dtype != "bf16"),
+            ("--length", args.length != 2**18),
+            ("--batch-size", args.batch_size != 8),
+            ("--preset", args.preset is not None)] if given]
+        if ignored:
+            print(f"warning: {', '.join(ignored)} ignored in --artifact "
+                  "mode (steps, shapes and batch are the artifact's "
+                  "manifest's; export again to change them)")
+        from .export import ArtifactSampler, load_params
+
+        model = ArtifactSampler(args.artifact,
+                                load_params(args.model, device), device)
+        service = GenerationService(
+            model, num_steps=model.num_steps, batch_size=model.batch_size,
+            max_wait_ms=args.max_wait_ms, result_format="pcm16")
+        server = make_server(
+            service,
+            sample_rate=(args.sample_rate or model.sample_rate or 48000),
+            default_length=model.length, channels=model.in_channels,
+            task="unconditional", model=model, host=args.host,
+            port=args.port, verbose=True)
+        host, port = server.server_address[:2]
+        print(f"serving artifact {args.artifact} ({model.num_steps}-step, "
+              f"batch {model.batch_size}, length {model.length}) on "
+              f"http://{host}:{port}", flush=True)
+        _serve_until_stopped(server, service)
+        return
+
+    cfg, task, sample_rate, upsample_factor = _load_run_config(args)
+    if task == "ar":
+        raise SystemExit(
+            "AR serving needs the Python API (its sampler generates from "
+            "a generator, not per-request noise or input payloads)")
+    model = _build_model(cfg, args.sampler, device, task, upsample_factor)
+    c = cfg.get("in_channels", 2)
+    model.load(args.model)
+    service = GenerationService(
+        model, num_steps=args.steps, batch_size=args.batch_size,
+        max_wait_ms=args.max_wait_ms, result_format="pcm16",
+        # Autoencoder serving batches latent -> audio decodes; /transform
+        # encodes each upload before submitting it.
+        method="decode" if task == "autoencoder" else "sample")
+    server = make_server(
+        service, sample_rate=sample_rate, default_length=args.length,
+        channels=c, task=task, model=model, host=args.host, port=args.port,
+        verbose=True)
+    host, port = server.server_address[:2]
+    print(f"serving {task} model ({args.steps}-step {args.sampler}, batch "
+          f"{args.batch_size}, {sample_rate} Hz) on http://{host}:{port}",
+          flush=True)
+    print("POST /generate {\"seed\": 1}  |  GET /stats  |  GET /healthz"
+          if task == "unconditional" else
+          "POST /transform (WAV body)  |  GET /stats  |  GET /healthz",
+          flush=True)
+    _serve_until_stopped(server, service)
+
+
+def _serve_until_stopped(server, service) -> None:
+    # Orchestrators stop containers with SIGTERM: drain the batches in
+    # flight instead of dying mid-request (KeyboardInterrupt covers ^C).
+    import signal
+
+    def _sigterm(_sig, _frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        service.close()
+
+
+def _cmd_export(args) -> None:
+    """Export a trained run's sampler (export.py): the artifact and the
+    parameter file are the whole deployment payload; serving hosts run it
+    without this package's model-definition code."""
+    from .export import export_sampler
+
+    device = _device(args)
+    cfg, task, sample_rate, _ = _load_run_config(args)
+    if task != "unconditional":
+        raise SystemExit(
+            f"export drives unconditional models; a {task} model's array "
+            "conditioning needs the Python API (export_sampler(**cond))")
+    cond = {}
+    if args.embedding is not None:
+        # Conditional artifact: the embedding is an INPUT of the program
+        # (its shape from the example .npy, batched to the serving batch);
+        # --embedding-scale bakes guided two-pass sampling in.
+        import numpy as np
+        import torch
+
+        emb = np.load(args.embedding)
+        cond["embedding"] = torch.zeros((args.batch_size,) + emb.shape,
+                                        device=device)
+        if args.embedding_scale is not None:
+            cond["embedding_scale"] = args.embedding_scale
+    elif args.embedding_scale is not None:
+        raise SystemExit("--embedding-scale needs --embedding (the example "
+                         ".npy that fixes the input shape)")
+    model = _build_model(cfg, args.sampler, device, task)
+    model.load(args.model)
+    manifest = export_sampler(
+        model, args.out, length=args.length, batch_size=args.batch_size,
+        num_steps=args.steps, sample_rate=sample_rate, **cond)
+    print(f"exported {manifest['noise_shape']} x {args.steps}-step "
+          f"{args.sampler} sampler for {manifest['platforms']} to "
+          f"{args.out}")
+
+
 def _unported(args) -> None:
     raise NotImplementedError(
         f"`{args.cmd}` is not ported to audio_diffusion_torch yet (ROADMAP "
-        "Queue 1: item 11, serving, and item 12, the distill, export, serve "
-        "and eval commands); use python -m audio_diffusion_tpu "
+        "Queue 1: the next slice ports distillation and the distill command, "
+        "a later one eval); use python -m audio_diffusion_tpu "
         f"{args.cmd}")
 
 
@@ -728,6 +856,60 @@ def main(argv=None) -> None:
                    help="also build the model and count its parameters")
     device_flag(i)
     i.set_defaults(fn=_cmd_info)
+
+    v = sub.add_parser(
+        "serve", help="serve a trained model over HTTP (microbatching: "
+        "concurrent requests share fixed-size device batches)")
+    v.add_argument("--model", required=True,
+                   help="model file saved by `train` (…/model)")
+    v.add_argument("--preset", default=None,
+                   help="preset/JSON config; defaults to the config.json "
+                        "recorded next to the model file")
+    v.add_argument("--artifact", default=None,
+                   help="serve from an artifact written by `export` (no "
+                        "model-definition code: --model is just the "
+                        "parameter file; shapes, steps and batch come from "
+                        "the artifact's manifest)")
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8000)
+    v.add_argument("--batch-size", type=int, default=8,
+                   help="device batch size (partial batches are padded)")
+    v.add_argument("--steps", type=int, default=50,
+                   help="default sampling steps (per-request num_steps "
+                        "overrides)")
+    v.add_argument("--max-wait-ms", type=float, default=100.0,
+                   help="how long to hold an incomplete batch open")
+    v.add_argument("--length", type=int, default=2**18,
+                   help="default generation length in frames")
+    v.add_argument("--sampler", choices=("v", "dpm"), default="v")
+    v.add_argument("--sample-rate", type=int, default=None)
+    v.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    device_flag(v)
+    v.set_defaults(fn=_cmd_serve)
+
+    x = sub.add_parser(
+        "export", help="export the sampler (one traced step + manifest): "
+        "deploy without the model-definition code")
+    x.add_argument("--model", required=True,
+                   help="model file saved by `train` (…/model)")
+    x.add_argument("--out", required=True, help="artifact directory")
+    x.add_argument("--preset", default=None,
+                   help="preset/JSON config; defaults to the config.json "
+                        "recorded next to the model file")
+    x.add_argument("--length", type=int, default=2**18)
+    x.add_argument("--batch-size", type=int, default=1)
+    x.add_argument("--steps", type=int, default=50)
+    x.add_argument("--sampler", choices=("v", "dpm"), default="v")
+    x.add_argument("--sample-rate", type=int, default=None)
+    x.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    x.add_argument("--embedding", default=None,
+                   help="example .npy fixing the conditional artifact's "
+                        "embedding input shape (batched to --batch-size)")
+    x.add_argument("--embedding-scale", type=float, default=None,
+                   help="bake guided two-pass CFG at this scale into the "
+                        "artifact")
+    device_flag(x)
+    x.set_defaults(fn=_cmd_export)
 
     for name, help_text in _UNPORTED.items():
         u = sub.add_parser(name, help=f"{help_text} (not ported yet)",

@@ -35,6 +35,15 @@ arrays) of an ``optax.adam``/``adamw`` (optionally chained after
 has it (a threefry key has no torch counterpart). Strict as well: an
 optimizer state other than these raises.
 
+Quantized leaves (``ops/quant.py``) cross both ways. A JAX ``QTensor``
+(anything with ``q``, ``qscale``, ``orig_dtype``, ``bits`` and
+``orig_shape``) becomes the port's :class:`~.ops.quant.QTensor` with the
+same int8 values and float32 scales; under a Dense kernel its ``q`` and
+scale are transposed with it (``channel_axis=0``, the scales [out, 1]).
+``params_to_jax`` turns a port QTensor back into the JAX layout, as a
+leaf built by its ``qtensor`` argument (the JAX package's ``QTensor`` to
+run the tree there).
+
 ``t5_params_from_flax(params)`` takes the Flax T5 encoder's parameter tree
 (``FlaxT5EncoderModel.params``) and returns the ``state_dict`` of
 ``ops.t5.T5EncoderStack``, also strictly.
@@ -47,6 +56,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import Tensor
+
+from .ops.quant import QTensor
 
 __all__ = ["params_from_jax", "params_to_jax", "t5_params_from_flax",
            "train_state_from_jax"]
@@ -217,35 +228,72 @@ def _layout(tree: Mapping, caller: str) -> Dict[str, tuple]:
     return walk.out
 
 
+def _is_qtensor(a) -> bool:
+    return all(hasattr(a, k) for k in ("q", "qscale", "bits", "orig_dtype"))
+
+
+def _qtensor_from_jax(a, is_dense: bool) -> QTensor:
+    q = np.array(a.q, dtype=np.int8)
+    s = np.array(a.qscale, dtype=np.float32)
+    shape = a.orig_shape
+    if is_dense:
+        q, s = q.T.copy(), s.T.copy()
+        shape = None if shape is None else tuple(shape)[::-1]
+    return QTensor(torch.from_numpy(q), torch.from_numpy(s),
+                   str(a.orig_dtype), int(a.bits), shape,
+                   0 if is_dense else -1)
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, Tensor]:
     """JAX ``UNetV0`` parameter tree -> the port's state_dict (f32 CPU
-    tensors); a task model's whole tree -> its ``params``."""
+    tensors; a JAX ``QTensor`` leaf -> the port's ``QTensor``); a task
+    model's whole tree -> its ``params``."""
     out = {}
     for name, (a, is_dense) in _layout(tree, "params_from_jax").items():
+        if _is_qtensor(a):
+            out[name] = _qtensor_from_jax(a, is_dense)
+            continue
         a = np.array(a, dtype=np.float32)
         out[name] = torch.from_numpy(a.T.copy() if is_dense else a)
     return out
 
 
-def params_to_jax(state: Mapping[str, Tensor]) -> dict:
+def _qtensor_to_jax(t: QTensor, is_dense: bool, qtensor):
+    q = t.q.detach().cpu().numpy()
+    s = t.qscale.detach().to("cpu", torch.float32).numpy()
+    shape = t.orig_shape
+    if is_dense:
+        q, s = q.T.copy(), s.T.copy()
+        shape = None if shape is None else shape[::-1]
+    return qtensor(q, s, t.orig_dtype, t.bits, shape)
+
+
+def params_to_jax(state: Mapping[str, Tensor], qtensor=QTensor) -> dict:
     """The port's state_dict (or ``model.params``) -> the JAX ``UNetV0``
     parameter tree, as nested dicts of float32 numpy arrays. A task model's
     ``params`` with extras give the model's whole tree (``{"net": ...,
     "encoder": {"params": ...}}``); the JAX model of a task without extras
-    holds ``{"net": params_to_jax(params)}``."""
+    holds ``{"net": params_to_jax(params)}``. A ``QTensor`` becomes
+    ``qtensor(q, qscale, orig_dtype, bits, orig_shape)`` of numpy arrays in
+    the JAX layout."""
     net: dict = {}
     extras: dict = {}
     for name, t in state.items():
         extra, _, name = name.rpartition("/")
         *path, key = name.split(".")
-        a = t.detach().to("cpu", torch.float32).numpy()
-        if key == "weight":  # an nn.Linear: the flax kernel is [in, out]
-            key, a = "kernel", a.T
+        dense = key == "weight"  # an nn.Linear: the flax kernel is [in, out]
+        if isinstance(t, QTensor):
+            leaf = _qtensor_to_jax(t, dense, qtensor)
+        else:
+            a = t.detach().to("cpu", torch.float32).numpy()
+            leaf = np.array(a.T if dense else a, dtype=np.float32)
+        if dense:
+            key = "kernel"
         node = (extras.setdefault(extra, {}).setdefault("params", {})
                 if extra else net)
         for part in path:
             node = node.setdefault(part, {})
-        node[key] = np.array(a, dtype=np.float32)
+        node[key] = leaf
     tree = {"net": net, **extras} if extras else net
     # The tree must be one that params_from_jax reads back name for name.
     names = set(_layout(tree, "params_to_jax"))

@@ -14,6 +14,7 @@ from torch import Tensor
 from ..ops.net import Net, cast_inference_params
 from . import noise
 from .core import alpha_beta
+from .samplers import run_steps
 from .schedules import LinearSchedule, Schedule
 
 __all__ = ["Inpainter", "VInpainter"]
@@ -54,9 +55,10 @@ class VInpainter(Inpainter):
         alphas, betas = alpha_beta(sigmas)
         mask = mask.to(torch.bool)
 
-        def loop(net):
+        def loop(step_net):
             x = x_noisy
             for i in range(num_steps):
+                net = step_net()  # quantized dicts: dequantized per step
                 for r in range(num_resamples):
                     v = net(x, sigmas[i].expand(b).to(x.dtype), **kwargs)
                     xf, vf = x.float(), v.float()
@@ -75,7 +77,7 @@ class VInpainter(Inpainter):
                     print(f"Inpainting (noise={float(sigmas_host[i]):.2f})")
             return x
 
-        return self.net.run(params, loop)
+        return run_steps(self.net, params, loop)
 
     def __call__(self, params: Dict[str, Tensor], *args, **kwargs) -> Tensor:
         return self.sample(params, *args, **kwargs)

@@ -6,20 +6,51 @@ for it. A sampler with ``needs_key`` draws noise: it takes a
 ``torch.Generator`` (on the device of its tensors) after the parameters,
 where the JAX sampler takes a key, and every draw goes through
 :func:`noise.normal`.
+
+A parameter dict may hold quantized leaves (``ops/quant.py``): each step
+then runs on the dict dequantized to the net's compute dtype
+(:func:`run_steps`), as the JAX samplers dequantize inside their scan.
+
+``VSampler`` and ``DPMSampler`` are also written as steps, which
+``export.py`` traces one at a time: ``coefficients(num_steps, device)``
+gives the per-step f32 table, ``start(x_noisy)`` the carry (``x_noisy``
+and zero tensors of its shape), and ``step(net, carry, row, **kwargs)``
+one step on row i of the table. ``sample`` runs those same steps, so an
+exported sampler gives ``sample``'s bits.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from ..ops.net import Net, cast_inference_params
+from ..ops.quant import dequantize_step_params, has_qtensors
 from . import noise
 from .core import alpha_beta, linspace
 from .schedules import LinearSchedule, Schedule, UniformLambdaSchedule
 
-__all__ = ["Sampler", "VSampler", "SDESampler", "DPMSampler", "ARVSampler"]
+__all__ = ["Sampler", "VSampler", "SDESampler", "DPMSampler", "ARVSampler",
+           "run_steps"]
+
+
+def run_steps(net: Net, params: Dict, loop: Callable):
+    """``loop(step_net)``, where ``step_net()`` gives the net to call in the
+    step that asks (call it once per step). A plain dict is swapped into the
+    module once for the whole loop (``Net.run``); a dict holding QTensors is
+    dequantized to the net's compute dtype at each ``step_net()``, so a
+    step streams the quantized weights (a dict without QTensors runs
+    exactly as before)."""
+    if not has_qtensors(params):
+        return net.run(params, lambda module: loop(lambda: module))
+
+    def step_net():
+        return functools.partial(
+            net.apply, dequantize_step_params(params, net.compute_dtype))
+
+    return loop(step_net)
 
 
 class Sampler:
@@ -57,6 +88,35 @@ class VSampler(Sampler):
         self.net = net
         self.schedule = schedule or LinearSchedule()
 
+    def coefficients(self, num_steps: int, device=None) -> Dict[str, Tensor]:
+        """The per-step f32 table on ``device``: σ_i, α_i, β_i, α_{i+1} and
+        β_{i+1} (α and β computed there, from the schedule's σ)."""
+        sigmas = self.schedule(num_steps + 1).to(torch.float32).to(device)
+        alphas, betas = alpha_beta(sigmas)
+        return dict(sigma=sigmas[:-1], alpha=alphas[:-1], beta=betas[:-1],
+                    alpha_next=alphas[1:], beta_next=betas[1:])
+
+    @staticmethod
+    def start(x_noisy: Tensor) -> Tuple[Tensor, ...]:
+        return (x_noisy,)
+
+    @staticmethod
+    def update(x: Tensor, v: Tensor, row: Dict[str, Tensor]) -> Tensor:
+        """x_{i+1} from x_i and the net's v, in f32, cast to x's dtype."""
+        xf, vf = x.float(), v.float()
+        x_pred = row["alpha"] * xf - row["beta"] * vf
+        noise_pred = row["beta"] * xf + row["alpha"] * vf
+        return (row["alpha_next"] * x_pred
+                + row["beta_next"] * noise_pred).to(x.dtype)
+
+    def step(self, net, carry: Tuple[Tensor, ...], row: Dict[str, Tensor],
+             **kwargs) -> Tuple[Tensor, ...]:
+        """One step from ``carry`` on this step's row of the table; the net
+        sees σ in the carry dtype."""
+        (x,) = carry
+        v = net(x, row["sigma"].expand(x.shape[0]).to(x.dtype), **kwargs)
+        return (self.update(x, v, row),)
+
     def sample(self, params: Dict[str, Tensor], x_noisy: Tensor,
                num_steps: int, show_progress: bool = False, unroll: int = 1,
                encoder_reuse: int = 1, **kwargs) -> Tensor:
@@ -70,34 +130,30 @@ class VSampler(Sampler):
         sampler. ``num_steps`` must be a multiple of k."""
         k = int(encoder_reuse)
         _check_reuse(num_steps, k)
-        b = x_noisy.shape[0]
         params = cast_inference_params(params, self.net.compute_dtype)
         # σ/α/β stay f32 under a bf16 carry; only the carry is in x's dtype.
-        sigmas_host = self.schedule(num_steps + 1).to(torch.float32)
-        sigmas = sigmas_host.to(x_noisy.device)
-        alphas, betas = alpha_beta(sigmas)
+        table = self.coefficients(num_steps, x_noisy.device)
 
-        def loop(net):
-            x = x_noisy
+        def loop(step_net):
+            carry = self.start(x_noisy)
             for i in range(num_steps):
-                # The net sees σ in the carry dtype.
-                sig = sigmas[i].expand(b).to(x.dtype)
+                row = {name: t[i] for name, t in table.items()}
+                net = step_net()
                 if k <= 1:
-                    v = net(x, sig, **kwargs)
-                elif i % k == 0:
-                    v, enc = net(x, sig, return_hidden=True, **kwargs)
+                    carry = self.step(net, carry, row, **kwargs)
                 else:
-                    v = net(x, sig, hidden=enc, **kwargs)
-                xf, vf = x.float(), v.float()
-                x_pred = alphas[i] * xf - betas[i] * vf
-                noise_pred = betas[i] * xf + alphas[i] * vf
-                x = (alphas[i + 1] * x_pred
-                     + betas[i + 1] * noise_pred).to(x.dtype)
+                    (x,) = carry
+                    sig = row["sigma"].expand(x.shape[0]).to(x.dtype)
+                    if i % k == 0:
+                        v, enc = net(x, sig, return_hidden=True, **kwargs)
+                    else:
+                        v = net(x, sig, hidden=enc, **kwargs)
+                    carry = (self.update(x, v, row),)
                 if show_progress:
-                    print(f"Sampling (noise={float(sigmas_host[i]):.2f})")
-            return x
+                    print(f"Sampling (noise={float(row['sigma']):.2f})")
+            return carry[0]
 
-        return self.net.run(params, loop)
+        return run_steps(self.net, params, loop)
 
 
 class SDESampler(Sampler):
@@ -135,10 +191,10 @@ class SDESampler(Sampler):
         mix_fresh, mix_pred = (t.to(x_noisy.device)
                                for t in (mix_fresh, mix_pred))
 
-        def loop(net):
+        def loop(step_net):
             x = x_noisy
             for i in range(num_steps):
-                v = net(x, sigmas[i].expand(b).to(x.dtype), **kwargs)
+                v = step_net()(x, sigmas[i].expand(b).to(x.dtype), **kwargs)
                 xf, vf = x.float(), v.float()
                 x_pred = alphas[i] * xf - betas[i] * vf
                 noise_pred = betas[i] * xf + alphas[i] * vf
@@ -152,7 +208,7 @@ class SDESampler(Sampler):
                     print(f"Sampling (noise={float(sigmas_host[i]):.2f})")
             return x
 
-        return self.net.run(params, loop)
+        return run_steps(self.net, params, loop)
 
 
 class DPMSampler(Sampler):
@@ -177,21 +233,45 @@ class DPMSampler(Sampler):
         self.net = net
         self.schedule = schedule or UniformLambdaSchedule()
 
-    def coefficients(self, num_steps: int) -> Dict[str, Tensor]:
-        """The per-step f32 coefficients on the host: σ_i, α_i, β_i, the
-        second-order weight 1/(2r) (unused on the first step), the ratio
-        β_{i+1}/β_i and α_{i+1}·(1 − e^{−h_i})."""
+    def coefficients(self, num_steps: int, device=None) -> Dict[str, Tensor]:
+        """The per-step f32 coefficients, computed on the host and moved to
+        ``device``: σ_i, α_i, β_i, the second-order weight 1/(2r) (0 on the
+        first step, which is first order: its previous x0 is zeros), the
+        ratio β_{i+1}/β_i and α_{i+1}·(1 − e^{−h_i})."""
         sigmas = self.schedule(num_steps + 1).to(torch.float32)
         alphas, betas = alpha_beta(sigmas)
         eps = torch.tensor(self._EPS, dtype=torch.float32)
         lam = torch.log(torch.maximum(alphas, eps) / torch.maximum(betas, eps))
         hs = lam[1:] - lam[:-1]
-        h_prev = torch.cat([torch.ones_like(hs[:1]), hs[:-1]])
-        r = h_prev / hs
-        return dict(sigma=sigmas[:-1], alpha=alphas[:-1], beta=betas[:-1],
-                    second=1.0 / (2.0 * r),
-                    ratio=betas[1:] / torch.maximum(betas[:-1], eps),
-                    decay=alphas[1:] * (1.0 - torch.exp(-hs)))
+        r = hs[:-1] / hs[1:]
+        second = torch.cat([torch.zeros_like(hs[:1]), 1.0 / (2.0 * r)])
+        table = dict(sigma=sigmas[:-1], alpha=alphas[:-1], beta=betas[:-1],
+                     second=second,
+                     ratio=betas[1:] / torch.maximum(betas[:-1], eps),
+                     decay=alphas[1:] * (1.0 - torch.exp(-hs)))
+        return {name: t.to(device) for name, t in table.items()}
+
+    @staticmethod
+    def start(x_noisy: Tensor) -> Tuple[Tensor, ...]:
+        """(x, the previous x0): zeros before the first step."""
+        return (x_noisy, torch.zeros_like(x_noisy))
+
+    @staticmethod
+    def update(x: Tensor, x0_prev: Tensor, v: Tensor,
+               row: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+        """(x_{i+1}, x0_i in the carry dtype). On the first step the weight
+        is 0 and the previous x0 zeros, so D_0 = x0_0 exactly."""
+        xf = x.float()
+        x0 = row["alpha"] * xf - row["beta"] * v.float()
+        d = x0 + row["second"] * (x0 - x0_prev.float())
+        return ((row["ratio"] * xf + row["decay"] * d).to(x.dtype),
+                x0.to(x.dtype))
+
+    def step(self, net, carry: Tuple[Tensor, ...], row: Dict[str, Tensor],
+             **kwargs) -> Tuple[Tensor, ...]:
+        x, x0_prev = carry
+        v = net(x, row["sigma"].expand(x.shape[0]).to(x.dtype), **kwargs)
+        return self.update(x, x0_prev, v, row)
 
     def sample(self, params: Dict[str, Tensor], x_noisy: Tensor,
                num_steps: int, show_progress: bool = False, unroll: int = 1,
@@ -201,33 +281,29 @@ class DPMSampler(Sampler):
         and ignored."""
         k = int(encoder_reuse)
         _check_reuse(num_steps, k)
-        b = x_noisy.shape[0]
         params = cast_inference_params(params, self.net.compute_dtype)
-        host = self.coefficients(num_steps)
-        co = {name: t.to(x_noisy.device) for name, t in host.items()}
+        table = self.coefficients(num_steps, x_noisy.device)
 
-        def loop(net):
-            x, x0_prev = x_noisy, None
+        def loop(step_net):
+            carry = self.start(x_noisy)
             for i in range(num_steps):
-                sig = co["sigma"][i].expand(b).to(x.dtype)
+                row = {name: t[i] for name, t in table.items()}
+                net = step_net()
                 if k <= 1:
-                    v = net(x, sig, **kwargs)
-                elif i % k == 0:
-                    v, enc = net(x, sig, return_hidden=True, **kwargs)
+                    carry = self.step(net, carry, row, **kwargs)
                 else:
-                    v = net(x, sig, hidden=enc, **kwargs)
-                xf = x.float()
-                x0 = co["alpha"][i] * xf - co["beta"][i] * v.float()
-                # The first step is first order (DDIM).
-                d = x0 if x0_prev is None else x0 + co["second"][i] * (
-                    x0 - x0_prev.float())
-                x = (co["ratio"][i] * xf + co["decay"][i] * d).to(x.dtype)
-                x0_prev = x0.to(x.dtype)
+                    x, x0_prev = carry
+                    sig = row["sigma"].expand(x.shape[0]).to(x.dtype)
+                    if i % k == 0:
+                        v, enc = net(x, sig, return_hidden=True, **kwargs)
+                    else:
+                        v = net(x, sig, hidden=enc, **kwargs)
+                    carry = self.update(x, x0_prev, v, row)
                 if show_progress:
-                    print(f"Sampling (noise={float(host['sigma'][i]):.2f})")
-            return x
+                    print(f"Sampling (noise={float(row['sigma']):.2f})")
+            return carry[0]
 
-        return self.net.run(params, loop)
+        return run_steps(self.net, params, loop)
 
 
 class ARVSampler(Sampler):
@@ -278,11 +354,11 @@ class ARVSampler(Sampler):
         params = cast_inference_params(params, self.net.compute_dtype)
         alphas, betas = alpha_beta(sigmas)
 
-        def loop(net):
+        def loop(step_net):
             x = current
             for i in range(sigmas.shape[0] - 1):
                 channels = torch.cat([x, sigmas[i].to(x.dtype)], dim=1)
-                v = net(channels, None, **kwargs)
+                v = step_net()(channels, None, **kwargs)
                 x_pred = alphas[i] * x - betas[i] * v
                 noise_pred = betas[i] * x + alphas[i] * v
                 x = alphas[i + 1] * x_pred + betas[i + 1] * noise_pred
@@ -291,7 +367,7 @@ class ARVSampler(Sampler):
                           f"{float(sigmas[i, 0, 0, -1]):.2f})")
             return x
 
-        return self.net.run(params, loop)
+        return run_steps(self.net, params, loop)
 
     def sample_start(self, params: Dict[str, Tensor],
                      generator: torch.Generator, num_items: int,

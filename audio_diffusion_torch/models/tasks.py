@@ -7,7 +7,9 @@ The autoencoder's encoder and the vocoder's learned ``to_flat`` are
 trainable extras of the model (:meth:`DiffusionModel.split_params`): they
 live on the model's device, ride in ``model.params`` under the prefixes
 ``encoder/`` and ``to_flat/``, and train with the net. Every fresh draw of
-noise goes through :func:`diffusion.noise.normal`.
+noise goes through :func:`diffusion.noise.normal`. A ``params=`` dict may
+hold quantized leaves (``ops/quant.py``): the samplers dequantize the net's
+per step, ``encode`` and the vocoder's ``to_flat`` theirs once per call.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from ..diffusion.vdiffusion import ARVDiffusion
 from ..dsp import MelSpectrogram, downsample, upsample
 from ..ops.components import AppendChannelsPlugin
 from ..ops.conv import ConvTranspose1d
+from ..ops.net import thread_module
+from ..ops.quant import dequantize_params
 from ..utils import closest_power_2, default, dequant_pcm16, groupby
 from .model import AdapterBase, DiffusionModel, EncoderBase
 
@@ -69,7 +73,7 @@ class DiffusionAE(DiffusionModel):
         return self.adapter.encode(x) if self.adapter is not None else x
 
     def _encode(self, params: Params, x: Tensor):
-        return functional_call(self.encoder, params, (x,),
+        return functional_call(thread_module(self.encoder), params, (x,),
                                {"with_info": True}, strict=True)
 
     def loss(self, params: Params, generator: torch.Generator, x: Tensor,
@@ -96,7 +100,8 @@ class DiffusionAE(DiffusionModel):
         _, extras = self.split_params(default(params, self.params))
         with torch.inference_mode():
             x = torch.as_tensor(x, device=self.device)
-            latent, info = self._encode(extras["encoder"], dequant_pcm16(x))
+            latent, info = self._encode(dequantize_params(extras["encoder"]),
+                                        dequant_pcm16(x))
         return (latent, info) if with_info else latent
 
     def decode(self, latent, generator: Optional[torch.Generator] = None,
@@ -202,7 +207,8 @@ class DiffusionVocoder(DiffusionModel):
 
     def _flatten(self, params: Params, spec: Tensor) -> Tensor:
         """[N, f, l] mel -> [N, 1, l·hop] conditioning channel."""
-        return functional_call(self.to_flat, params, (spec,), strict=True)
+        return functional_call(thread_module(self.to_flat), params, (spec,),
+                               strict=True)
 
     def loss(self, params: Params, generator: torch.Generator, x: Tensor,
              **kwargs) -> Tensor:
@@ -223,7 +229,8 @@ class DiffusionVocoder(DiffusionModel):
         with torch.inference_mode():
             spectrogram = torch.as_tensor(spectrogram, device=self.device)
             lead = spectrogram.shape[:-2]
-            flat = self._flatten(self.split_params(params)[1]["to_flat"],
+            flat = self._flatten(dequantize_params(
+                                     self.split_params(params)[1]["to_flat"]),
                                  spectrogram.reshape(
                                      (-1,) + spectrogram.shape[-2:]))
             noise = _noise.normal(generator, flat.shape, flat.dtype,

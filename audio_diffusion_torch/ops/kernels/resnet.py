@@ -17,6 +17,16 @@ hand-written chain of ``audio_diffusion_torch/csrc/resnet_item_bwd.cu``
 (counterpart of the Pallas kernel's custom VJP). In bf16 its data gradients
 run the forward's conv (``conv3_sm90.cuh``, :func:`conv_plan`) and its weight
 gradients ``csrc/wgrad_sm90.cuh`` (:func:`wgrad_plan`).
+
+Without a gradient, a trace (``torch.export``) records a CUDA tensor's
+item as the registered operator
+``torch.ops.audio_diffusion_torch.fused_resnet_item``, one node (its fake
+returns an empty [B, L, C] of x's dtype) that an exported program calls
+like any aten op. Eager code calls the launcher directly: on an H100 the
+operator's dispatch added about 48 µs of host time per item, 2 ms per
+host-bound sampling step, more than the step's run-to-run spread
+(``PERF.md``, PR 10). Either way the kernel launches in
+``_launch_forward``, which counts ``fused_resnet_item.launches``.
 """
 from __future__ import annotations
 
@@ -353,6 +363,10 @@ def _launch_forward(x, params, groups, eps, use_modulation, keep):
     """Launch the forward chain. ``keep`` asks for what the backward reads:
     returns (out, h, y, stats), with y the item before its modulation (out
     itself when nothing is kept or there is no modulation)."""
+    for name, t in (("x", x), ("k1", params[2]), ("k2", params[6])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_resnet_item: {name} is not 16-byte "
+                             "aligned (the kernel copies 16-byte vectors)")
     b, length, c = x.shape
     rows_per_tile, n_tiles = _stats_tiles(length, c)
     h = torch.empty_like(x)
@@ -486,16 +500,36 @@ def fused_resnet_item(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor,
                              f"{t.device}, x is {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"fused_resnet_item: {name} is not contiguous")
-        if name in ("x", "k1", "k2") and t.data_ptr() % 16:
-            raise ValueError(f"fused_resnet_item: {name} is not 16-byte "
-                             "aligned (the kernel copies 16-byte vectors)")
         needs_grad = needs_grad or t.requires_grad
     params = tuple(args[n] if n in shapes else None for n in args)
     if needs_grad and torch.is_grad_enabled():
         return _FusedResnetItem.apply(groups, eps, use_modulation, x, *params)
+    if torch.compiler.is_compiling():
+        return _item_op(x, *params, groups, eps, use_modulation)
     return _launch_forward(x, params, groups, eps, use_modulation,
                            keep=False)[0]
 
 
 fused_resnet_item.launches = 0
 fused_resnet_item.backward_launches = 0
+
+
+@torch.library.custom_op("audio_diffusion_torch::fused_resnet_item",
+                         mutates_args=())
+def _item_op(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor, c1b: Tensor,
+             gn2s: Tensor, gn2b: Tensor, k2: Tensor, c2b: Tensor,
+             mods: Optional[Tensor], modb: Optional[Tensor],
+             mgs: Optional[Tensor], mgb: Optional[Tensor], groups: int,
+             eps: float, use_modulation: bool) -> Tensor:
+    """The inference forward as an operator: the kernel on a CUDA tensor
+    (inputs as :func:`fused_resnet_item` checks them)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resnet_item: no kernel for device {x.device}")
+    return _launch_forward(x, (gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods,
+                               modb, mgs, mgb), groups, eps, use_modulation,
+                           keep=False)[0]
+
+
+@_item_op.register_fake
+def _item_op_fake(x, *args):
+    return torch.empty_like(x)

@@ -12,6 +12,10 @@ the JAX loss passes a key.
 """
 from __future__ import annotations
 
+import copy
+import itertools
+import threading
+import weakref
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
@@ -30,12 +34,41 @@ _KEEP_F32 = ("freqs",)
 
 def cast_inference_params(params: Dict[str, Tensor], dtype) -> Dict[str, Tensor]:
     """Cast float32 parameters to the compute dtype once, before a sampling
-    loop; ``freqs`` stay float32. No-op when dtype is None or float32."""
+    loop; ``freqs`` stay float32, and quantized leaves (``ops/quant.py``'s
+    ``QTensor``) pass through: the samplers dequantize them to the compute
+    dtype inside each step, and casting their scales here would add a bf16
+    rounding to the int8 error. No-op when dtype is None or float32."""
     if dtype is None or dtype == torch.float32:
         return params
-    return {name: (t.to(dtype) if t.dtype == torch.float32
+    return {name: (t.to(dtype) if isinstance(t, Tensor)
+                   and t.dtype == torch.float32
                    and name.rsplit(".", 1)[-1] not in _KEEP_F32 else t)
             for name, t in params.items()}
+
+
+_SHELLS: "weakref.WeakKeyDictionary[nn.Module, Dict[int, nn.Module]]" = (
+    weakref.WeakKeyDictionary())
+_SHELLS_LOCK = threading.Lock()
+
+
+def thread_module(module: nn.Module) -> nn.Module:
+    """``module`` on the main thread; on any other thread a copy of its
+    structure made for that thread, whose parameters and buffers are meta
+    tensors: ``functional_call`` fills them for the length of a call, so the
+    copy holds no memory and the module itself is never swapped."""
+    if threading.current_thread() is threading.main_thread():
+        return module
+    with _SHELLS_LOCK:
+        shells = _SHELLS.setdefault(module, {})
+        shell = shells.get(threading.get_ident())
+        if shell is None:
+            memo = {id(t): nn.Parameter(t.detach().to("meta"),
+                                        requires_grad=t.requires_grad)
+                    for t in itertools.chain(module.parameters(),
+                                             module.buffers())}
+            shell = shells[threading.get_ident()] = copy.deepcopy(module,
+                                                                  memo)
+    return shell
 
 
 class _Run(nn.Module):
@@ -88,7 +121,8 @@ class Net:
         if isinstance(params_or_module, nn.Module):
             return fn(params_or_module)
         params = {"module." + k: v for k, v in params_or_module.items()}
-        return functional_call(_Run(self.module), params, (fn,), strict=True)
+        return functional_call(_Run(thread_module(self.module)), params,
+                               (fn,), strict=True)
 
     def __call__(self, params, x: Tensor, sigmas: Optional[Tensor] = None,
                  **cond) -> Tensor:

@@ -89,9 +89,18 @@ the flagship levels' per-pass sums at batch 16. ``trainer_launches``
 counts the Trainer's 3 straight flagship steps (42 per step each way), and
 ``remat_launches`` the launches per step with ``use_remat`` (84 forward:
 the forward kernel runs again in the backward's recompute; 42 backward).
+``serve_launches`` counts the service's 3 batches of the 19 requests
+(6,300 = 42 x 50 x 3), ``quant_launches`` the int8 sample's and
+``artifact_launches`` the exported sampler's (2,100 each); the
+``batch8_*`` keys are the per-pass sums at batch 8.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
-guided pass's batch of 2, with the same bars.
+guided pass's batch of 2 and the served batch of 8, with the same bars.
+Serving's bars: quantized leaves on the card bit-equal to the CPU's and a
+4-step quantized sample within 1e-3 of the CPU's (f32); the service's rows,
+the artifact's sample and a seed in two batches bit for bit; the int8
+sample's relative RMS error against bf16 under 0.5 (a sanity bar: its
+value is reported).
 
 Tolerances (kernel vs plain version, same inputs): float32 with TF32 off,
 max-abs ≤ 2e-4·max(1, max|y|), sums taken in another order; bfloat16
@@ -147,6 +156,8 @@ GRAD_NAMES = ("x", "gn1s", "gn1b", "k1", "c1b", "gn2s", "gn2b", "k2", "c2b",
               "mods", "modb", "mgs", "mgb")
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
+# The serving service's device batch (GenerationService's default).
+SERVE_BATCH = 8
 # The guided pass runs [cond; fixed] as one batch of 2 for a batch-1 sample.
 GUIDED_BATCH = 2
 GUIDANCE = 5.0
@@ -2183,6 +2194,483 @@ def phase_cli_train_sample(root: Path):
         raise AssertionError(f"cli_train_sample: info printed {info}")
 
 
+def phase_kernel_vs_plain_batch8(flush):
+    """The forward kernel at a served batch's shape: each flagship level's
+    item at batch 8 in bf16, the inference branch (nothing kept), against
+    the plain version with the batch-1 bars, a bit-identical rerun and the
+    conv's plan. Returns the rows."""
+    import torch
+
+    return forward_rows(flush, "kernel_vs_plain_batch8", LEVELS,
+                        ((torch.bfloat16, SERVE_BATCH),), seed=10)
+
+
+def item_stand_in(route):
+    """A stand-in for ``fused_resnet_item`` that skips its input checks and
+    runs the item's inference forward through the registered operator (a
+    trace's route) or the launcher called directly (eager code's), with the
+    wrapper's counters: the two differ by the dispatcher alone."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    def item(x, *params, groups, eps, use_modulation):
+        params = list(params) + [None] * (12 - len(params))
+        if route == "operator":
+            return torch.ops.audio_diffusion_torch.fused_resnet_item(
+                x, *params, groups, eps, use_modulation)
+        return resnet._launch_forward(x, params, groups, eps, use_modulation,
+                                      keep=False)[0]
+
+    item.launches = item.backward_launches = 0
+    return item
+
+
+def phase_operator_dispatch(model, noise):
+    """What the registered operator's dispatch would add to eager code:
+    the host's µs per item call through the launcher, through the operator
+    and through ``fused_resnet_item`` itself (its input checks, then the
+    launcher; 100 calls of the level-8 item at batch 1, in turns, four
+    rounds, the first dropped), and ms per sampling step at batch 1 with
+    every item through the launcher and through the operator (both
+    without the checks), in turns (launcher, operator, operator, launcher,
+    twice). The two routes must give the same bits. Returns the row."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    c, length = LEVELS[-1]
+    args = item_inputs(c, length, torch.bfloat16,
+                       torch.Generator(device="cuda").manual_seed(40))
+    kw = dict(groups=GROUPS, eps=1e-5, use_modulation=True)
+    stand_in = {r: item_stand_in(r) for r in ("launcher", "operator")}
+    calls = {"launcher": lambda: stand_in["launcher"](*args, **kw),
+             "operator": lambda: stand_in["operator"](*args, **kw),
+             "wrapper": lambda: resnet.fused_resnet_item(*args, **kw)}
+    call_us = {r: [] for r in calls}
+    with torch.inference_mode():
+        for route in tuple(calls) * 4:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                calls[route]()
+            call_us[route].append((time.perf_counter() - t0) * 1e4)
+            torch.cuda.synchronize()
+    call_us = {k: sorted(v[1:])[1] for k, v in call_us.items()}
+    steps = 20
+    runs = {"launcher": [], "operator": []}
+    outs = {}
+    model.sample(noise, num_steps=2)
+    for route in ("launcher", "operator", "operator", "launcher") * 2:
+        with mock.patch.object(resnet, "fused_resnet_item", stand_in[route]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = model.sample(noise, num_steps=steps)
+            torch.cuda.synchronize()
+        runs[route].append((time.perf_counter() - t0) * 1e3 / steps)
+    med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+    spread = {k: max(v) - min(v) for k, v in runs.items()}
+    row = dict(phase="operator_dispatch", steps=steps, batch=1,
+               ms_per_step=med, ms_per_step_runs=runs, spread_ms=spread,
+               operator_minus_launcher_ms=med["operator"] - med["launcher"],
+               host_us_per_item_call=call_us,
+               dispatch_ms_per_step=(call_us["operator"]
+                                     - call_us["launcher"])
+               * 2 * sum(ITEMS) / 1e3,
+               routes_bit_equal=bool(torch.equal(outs["launcher"],
+                                                 outs["operator"])))
+    emit(row)
+    if not row["routes_bit_equal"]:
+        raise AssertionError("operator_dispatch: the operator and the "
+                             "launcher give other bits")
+    return row
+
+
+def phase_quant_small_reference():
+    """Quantized weights on the small net, card vs CPU (f32): int8 and int4
+    (served through ``unpack_int4_leaves``) quantized on each device from
+    the same weights: the int8 values, the scales and the dequantized
+    leaves bit-equal; a 4-step quantized sample from host-made noise within
+    the small reference's bar."""
+    import torch
+    from audio_diffusion_torch import (DiffusionModel, UNetV0,
+                                       dequantize_params, quantize_params,
+                                       unpack_int4_leaves)
+
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **SMALL_CFG)
+    fill_zero_params(cpu)
+    gpu = DiffusionModel(net_t=UNetV0, **SMALL_CFG)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    noise = torch.randn(1, 2, 256, generator=torch.Generator().manual_seed(3))
+    errs, quantized = {}, 0
+    for bits in (8, 4):
+        q_cpu = unpack_int4_leaves(quantize_params(cpu.params, min_size=256,
+                                                   bits=bits))
+        q_gpu = unpack_int4_leaves(quantize_params(gpu.params, min_size=256,
+                                                   bits=bits))
+        d_cpu, d_gpu = dequantize_params(q_cpu), dequantize_params(q_gpu)
+        for name, v in q_cpu.items():
+            if hasattr(v, "qscale"):
+                quantized += 1
+                same = (torch.equal(q_gpu[name].q.cpu(), v.q)
+                        and torch.equal(q_gpu[name].qscale.cpu(), v.qscale)
+                        and torch.equal(d_gpu[name].cpu(), d_cpu[name]))
+                if not same:
+                    raise AssertionError(f"quant_small_reference int{bits} "
+                                         f"{name}: card and CPU differ")
+        want = cpu.sample(noise, num_steps=4, params=q_cpu)
+        got = gpu.sample(noise, num_steps=4, params=q_gpu).cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"quant_small_reference int{bits}: "
+                                 "non-finite values")
+        errs[f"int{bits}"] = (got - want).abs().max().item()
+    emit(dict(phase="quant_small_reference", steps=4, dtype="float32",
+              quantized_leaves=quantized, leaves_bit_equal=True,
+              max_abs_err=errs, tolerance=1e-3))
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f"quant_small_reference: max-abs {errs}")
+
+
+def phase_serve_flagship(model):
+    """The batching service on the flagship (bf16): ``GenerationService(
+    batch_size=8, num_steps=50, result_format="pcm16")``, 16 seed requests
+    of 2^18 stereo, then 3 more (seed 3 again among them) that make a
+    padded batch. Counts set to 0 just before the 19, read after: 42 x 50
+    launches per batch. Requests and samples per second, ms per step at
+    batch 8, latency per request, occupancy, padding, peak memory. Gates:
+    seed 3 gives the same int16 bits in both batches; ``submit(noise)``
+    rows equal ``model.sample`` of the same padded batch (10 steps); an
+    ``update_params`` to a second parameter set while a batch is in flight
+    fails no request, the batch in flight keeps the first set's bits and
+    the next batch takes the second set. Returns the item launches of the
+    19 requests."""
+    import numpy as np
+    import torch
+    from audio_diffusion_torch import GenerationService
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.serve import to_pcm16
+
+    item = resnet.fused_resnet_item
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    warm = torch.randn(SERVE_BATCH, 2, LENGTH, device="cuda", generator=gen)
+    model.sample(warm, num_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = GenerationService(model, batch_size=SERVE_BATCH,
+                            num_steps=NUM_STEPS, result_format="pcm16")
+    try:
+        done_at = {}
+
+        def submit(seed, tag):
+            fut = svc.submit_seed(seed, length=LENGTH)
+            fut.add_done_callback(
+                lambda f, tag=tag: done_at.setdefault(tag, time.perf_counter()))
+            return fut
+
+        seeds = list(range(16)) + [3, 100, 101]
+        item.launches = 0
+        t0 = time.perf_counter()
+        futs = [submit(s, i) for i, s in enumerate(seeds[:16])]
+        futs += [submit(s, 16 + i) for i, s in enumerate(seeds[16:])]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = item.launches
+        stats = svc.stats
+        peak = torch.cuda.max_memory_allocated()
+        lat = sorted(done_at[i] - t0 for i in range(len(seeds)))
+        batches = stats["batches"]
+        if any(o.dtype != np.int16 or o.shape != (2, LENGTH) for o in outs):
+            raise AssertionError("serve_flagship: a result is not int16 "
+                                 f"[2, {LENGTH}]")
+        same_seed = bool(np.array_equal(outs[3], outs[16]))
+
+        # submit(noise): rows equal model.sample of the same padded batch.
+        rs = np.random.default_rng(31)
+        noises = [rs.standard_normal((2, LENGTH)).astype(np.float32)
+                  for _ in range(3)]
+        got = np.stack([f.result(timeout=600) for f in
+                        [svc.submit(n, num_steps=10) for n in noises]])
+        padded = torch.from_numpy(np.stack(noises + [noises[-1]] * 5))
+        want = to_pcm16(model.sample(padded.cuda(), num_steps=10)[:3]).cpu()
+        rows_equal = bool(np.array_equal(got, want.numpy()))
+
+        # update_params while a batch is in flight.
+        second = {k: (v.detach() * 0.999) for k, v in model.params.items()}
+        old = [svc.submit_seed(s, length=LENGTH) for s in range(8)]
+        time.sleep(0.5)  # the batch is running
+        t1 = time.perf_counter()
+        svc.update_params(second)
+        swap_ms = (time.perf_counter() - t1) * 1e3
+        new = [svc.submit_seed(s, length=LENGTH) for s in range(8)]
+        old_out = [f.result(timeout=600) for f in old]
+        new_out = [f.result(timeout=600) for f in new]
+        kept_old = all(np.array_equal(a, b) for a, b in zip(old_out, outs))
+        took_new = any(not np.array_equal(a, b)
+                       for a, b in zip(new_out, outs))
+        del second
+    finally:
+        svc.close()
+    phase_profile("serve_profile", lambda: model.sample(warm, num_steps=2),
+                  steps=2, batch=SERVE_BATCH)
+    steps_run = batches * NUM_STEPS
+    row = dict(phase="serve_flagship", batch_size=SERVE_BATCH,
+               steps=NUM_STEPS, length=LENGTH, dtype="bfloat16",
+               result_format="pcm16", seconds=wall, requests_per_s=len(seeds) / wall,
+               samples_per_s=len(seeds) / wall,
+               device_rows_per_s=batches * SERVE_BATCH / wall,
+               ms_per_step_batch8=wall * 1e3 / steps_run,
+               latency_s=dict(median=lat[len(lat) // 2], max=lat[-1],
+                              min=lat[0]),
+               **stats, peak_memory_bytes=peak, item_launches=launches,
+               expected_launches=2 * sum(ITEMS) * NUM_STEPS * batches,
+               same_seed_two_batches_bit_equal=same_seed,
+               submit_rows_equal_model_sample=rows_equal,
+               update_params_ms=swap_ms, in_flight_kept_old=kept_old,
+               next_batch_took_new=took_new)
+    emit(row)
+    if batches != 3 or stats["padded_slots"] != 5:
+        raise AssertionError(f"serve_flagship: {stats}, expected 3 batches "
+                             "and 5 padded slots")
+    if launches != row["expected_launches"]:
+        raise AssertionError(f"serve_flagship: {launches} item launches, "
+                             f"expected {row['expected_launches']}")
+    for key in ("same_seed_two_batches_bit_equal",
+                "submit_rows_equal_model_sample", "in_flight_kept_old",
+                "next_batch_took_new"):
+        if not row[key]:
+            raise AssertionError(f"serve_flagship: {key} failed")
+    return launches
+
+
+def phase_quant_flagship(model, noise):
+    """int8 weight-only quantization of the flagship (``quantize_params``,
+    bf16 compute): a 50-step sample at batch 1 with the int8 dict and one
+    without, in this call; ms per step of each, peak memory, the bytes at
+    rest (f32 masters, int8, int4), the int8 sample's relative RMS error
+    against the unquantized one, 2,100 launches per sample. Returns the
+    int8 sample's launches."""
+    import torch
+    from audio_diffusion_torch import quantize_params
+    from audio_diffusion_torch.ops.quant import storage_bytes
+
+    q8 = quantize_params(model.params)
+    q4 = quantize_params(model.params, bits=4)
+    at_rest = dict(f32=storage_bytes(model.params), int8=storage_bytes(q8),
+                   int4=storage_bytes(q4),
+                   quantized_leaves=sum(hasattr(v, "qscale")
+                                        for v in q8.values()),
+                   leaves=len(q8))
+    del q4
+    ref, ref_launches, ref_ms, ref_peak = sample_runs(model, noise)
+    out, launches, q_ms, q_peak = sample_runs(model, noise, params=q8)
+    rel_rms = ((out.float() - ref.float()).norm()
+               / ref.float().norm()).item()
+    row = dict(phase="quant_flagship", bits=8, steps=NUM_STEPS, batch=1,
+               dtype="bfloat16", ms_per_step=dict(
+                   bf16=sorted(ref_ms)[1], int8=sorted(q_ms)[1]),
+               ms_per_step_runs=dict(bf16=ref_ms, int8=q_ms),
+               peak_memory_bytes=dict(bf16=ref_peak, int8=q_peak),
+               bytes_at_rest=at_rest, rel_rms_err=rel_rms,
+               item_launches=dict(bf16=ref_launches, int8=launches),
+               finite=bool(torch.isfinite(out).all()))
+    emit(row)
+    want = 2 * sum(ITEMS) * NUM_STEPS
+    if launches != want or ref_launches != want:
+        raise AssertionError(f"quant_flagship: launches {launches}, "
+                             f"{ref_launches}, expected {want}")
+    if not row["finite"] or not rel_rms < 0.5:
+        raise AssertionError(f"quant_flagship: rel RMS {rel_rms}")
+    return launches
+
+
+def phase_export_flagship(model, noise, root: Path):
+    """``export_sampler`` of the flagship at [1, 2, 2^18], 50 steps: the
+    seconds to export and to load, the artifact's bytes; the artifact's
+    sample against ``model.sample`` bit for bit, ms per step of each,
+    2,100 launches (counts set to 0 just before the artifact's sample);
+    an ``ArtifactSampler`` behind a ``GenerationService`` giving the same
+    int16 bits. Returns the artifact's launches."""
+    import numpy as np
+    import torch
+    from audio_diffusion_torch import (ArtifactSampler, GenerationService,
+                                       export_sampler)
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.serve import to_pcm16
+
+    item = resnet.fused_resnet_item
+    art = root / "artifact"
+    t0 = time.perf_counter()
+    manifest = export_sampler(model, art, length=LENGTH, batch_size=1,
+                              num_steps=NUM_STEPS, sample_rate=48000)
+    export_s = time.perf_counter() - t0
+    nbytes = {p.name: p.stat().st_size for p in art.iterdir()}
+    program = torch.export.load(art / "step.pt2")
+    op_nodes = sum("fused_resnet_item" in str(n.target)
+                   for n in program.graph.nodes)
+    del program
+    t0 = time.perf_counter()
+    sampler = ArtifactSampler(art, model.params)
+    load_s = time.perf_counter() - t0
+    want, _, live_ms, _ = sample_runs(model, noise)
+    times = []
+    sampler.sample(noise)  # warm-up
+    for run in range(3):
+        if run == 0:
+            item.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sampler.sample(noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+        if run == 0:
+            launches = item.launches
+    bit_equal = bool(torch.equal(got, want))
+    with GenerationService(sampler, num_steps=NUM_STEPS, batch_size=1,
+                           result_format="pcm16") as svc:
+        served = svc.submit(noise[0].cpu()).result(timeout=600)
+    served_equal = bool(np.array_equal(served,
+                                       to_pcm16(want[0]).cpu().numpy()))
+    row = dict(phase="export_flagship", shape=manifest["noise_shape"],
+               steps=NUM_STEPS, dtype="bfloat16", export_s=export_s,
+               load_s=load_s, artifact_bytes=nbytes,
+               graph_nodes=manifest["graph_nodes"],
+               pruned_nodes=manifest["pruned_nodes"],
+               operator_nodes=op_nodes,
+               ms_per_step=dict(live=sorted(live_ms)[1],
+                                artifact=sorted(times)[1]),
+               ms_per_step_runs=dict(live=live_ms, artifact=times),
+               bit_equal=bit_equal, item_launches=launches,
+               served_bit_equal=served_equal)
+    emit(row)
+    if op_nodes != 2 * sum(ITEMS):
+        raise AssertionError(f"export_flagship: {op_nodes} operator nodes")
+    if launches != 2 * sum(ITEMS) * NUM_STEPS:
+        raise AssertionError(f"export_flagship: {launches} launches")
+    if not (bit_equal and served_equal):
+        raise AssertionError("export_flagship: the artifact's sample "
+                             "differs from model.sample")
+    return launches
+
+
+def wav_pcm(body: bytes):
+    """(channels, rate, int16 frames) of a PCM16 WAV body."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        if w.getsampwidth() != 2:
+            raise AssertionError("not a PCM16 WAV")
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        return w.getnchannels(), w.getframerate(), pcm.reshape(
+            -1, w.getnchannels()).T
+
+
+def serve_process(argv, requests, timeout=900):
+    """``python -m audio_diffusion_torch serve`` in a subprocess on a free
+    port: waits for its address, POSTs ``requests`` (JSON bodies) to
+    /generate concurrently, reads /stats, stops it with SIGTERM. Returns
+    (seconds to start, to the first response and per request, the bodies,
+    /stats, the exit code, the last lines of its output)."""
+    import signal
+    import urllib.request
+
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audio_diffusion_torch", "serve", *argv,
+         "--port", "0"], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = ""
+        for _ in range(20):  # the address line, after any warnings
+            line = proc.stdout.readline()
+            if "http://" in line or not line:
+                break
+        if "http://" not in line:
+            raise AssertionError(f"serve did not start: {line!r} "
+                                 f"{proc.stderr.read()[-2000:]}")
+        start_s = time.perf_counter() - t0
+        base = line.strip().rsplit(" ", 1)[-1]
+
+        def post(body):
+            req = urllib.request.Request(
+                base + "/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.read(), time.perf_counter() - t
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+            results = list(pool.map(post, requests))
+        first_s = min(s for _, s in results)
+        with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        wall_s = time.perf_counter() - t1
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        out = proc.stdout.read().strip().splitlines()[-3:]
+        return dict(start_s=start_s, first_response_s=first_s,
+                    request_s=[s for _, s in results],
+                    wall_s=wall_s), [b for b, _ in results], stats, rc, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_cli_serve(root: Path):
+    """``serve`` and ``export`` as a user runs them, on the run that
+    ``phase_cli_train_sample`` trained: ``serve --model`` with 4 concurrent
+    ``POST /generate`` of 2^18 frames (one padded batch of 8), each a PCM16
+    stereo WAV of 2^18 frames, /stats showing one batch; SIGTERM drains
+    and exits 0. Then ``export`` and ``serve --artifact`` with one
+    request."""
+    import numpy as np
+
+    run = root / "run"
+    repo = Path(__file__).resolve().parent
+    times, bodies, stats, rc, out = serve_process(
+        ["--model", str(run / "model")],
+        [{"seed": k, "length": LENGTH} for k in range(4)])
+    shapes = [wav_pcm(b)[:2] + (wav_pcm(b)[2].shape,) for b in bodies]
+    ok = all(s == (2, 48000, (2, LENGTH)) for s in shapes)
+    distinct = len({bytes(b) for b in bodies}) == 4
+    row = dict(phase="cli_serve", serve=dict(**times, stats=stats, rc=rc,
+                                             wavs_ok=ok, distinct=distinct,
+                                             last_lines=out))
+    if not (ok and distinct and rc == 0 and stats["requests"] == 4
+            and stats["batches"] == 1):
+        emit(row)
+        raise AssertionError(f"cli_serve: serve {shapes}, rc {rc}, {stats}")
+    art = root / "cli_artifact"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "audio_diffusion_torch", "export", "--model",
+         str(run / "model"), "--out", str(art), "--length", str(LENGTH),
+         "--steps", str(NUM_STEPS)], cwd=repo, capture_output=True,
+        text=True, timeout=900)
+    row["export"] = dict(rc=proc.returncode,
+                         seconds=time.perf_counter() - t0,
+                         stdout=proc.stdout.strip().splitlines()[-2:])
+    if proc.returncode != 0:
+        emit(row)
+        raise AssertionError(f"cli_serve: export exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    times, bodies, stats, rc, out = serve_process(
+        ["--model", str(run / "model"), "--artifact", str(art)],
+        [{"seed": 7}])
+    channels, rate, pcm = wav_pcm(bodies[0])
+    ok = (channels, rate, pcm.shape) == (2, 48000, (2, LENGTH))
+    row["serve_artifact"] = dict(**times, stats=stats, rc=rc, wav_ok=ok,
+                                 nonzero=bool(np.abs(pcm).max() > 0),
+                                 last_lines=out)
+    emit(row)
+    if not (ok and rc == 0 and stats["requests"] == 1):
+        raise AssertionError(f"cli_serve: serve --artifact {channels}, "
+                             f"{rate}, {pcm.shape}, rc {rc}, {stats}")
+
+
 def main() -> int:
     import torch
 
@@ -2221,6 +2709,7 @@ def main() -> int:
         phase_kernel_backward_vs_plain_nomod(flush))
     (enc_rows, batch16_rows, enc_bwd_rows, enc_bwd_train_rows,
      batch16_bwd_rows) = phase_kernel_vs_plain_tasks(flush)
+    batch8_rows = phase_kernel_vs_plain_batch8(flush)
     del flush
     phase_small_reference()
     phase_train_small()
@@ -2229,6 +2718,7 @@ def main() -> int:
     phase_sampler_small_reference()
     phase_dsp_small_reference()
     phase_task_small_reference()
+    phase_quant_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
@@ -2253,6 +2743,23 @@ def main() -> int:
         raise AssertionError("sample: bad shape or non-finite values")
     phase_profile("profile", lambda: model.sample(noise, num_steps=2),
                   steps=2)
+    phase_operator_dispatch(model, noise)
+
+    # Serving on the same net, each path with its own counts: the batching
+    # service at batch 8, int8 weights, the exported sampler.
+    serve_launches = phase_serve_flagship(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_launches = phase_quant_flagship(model, noise)
+    gc.collect()
+    torch.cuda.empty_cache()
+    art_root = Path(tempfile.mkdtemp(prefix="chip_smoke_art_"))
+    try:
+        artifact_launches = phase_export_flagship(model, noise, art_root)
+    finally:
+        shutil.rmtree(art_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # The other samplers on the same net, each with its own counts: DPM,
     # SDE (eta = 0 against the VSampler sample above), long-form.
@@ -2320,6 +2827,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         remat_launches = phase_remat_flagship(torch)
         phase_cli_train_sample(root)
+        phase_cli_serve(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2357,6 +2865,7 @@ def main() -> int:
     encoder_fwd = summary("", "", "", enc_rows)
     encoder_bwd = summary("", "", "", enc_bwd_rows)
     batch16_fwd = summary("", "", "", batch16_rows)
+    batch8_fwd = summary("", "", "", batch8_rows)
     task_launches = dict(upsampler_launches=up_launches,
                          vocoder_launches=voc_launches,
                          ae_encode_launches=enc_launches,
@@ -2386,7 +2895,11 @@ def main() -> int:
                 **{f"nomod_{k}": nomod[k] for k in per_pass_keys},
                 **{f"encoder_nomod_{k}": encoder_fwd[k]
                    for k in per_pass_keys},
-                **{f"batch16_{k}": batch16_fwd[k] for k in per_pass_keys}),
+                **{f"batch16_{k}": batch16_fwd[k] for k in per_pass_keys},
+                serve_launches=serve_launches, quant_launches=quant_launches,
+                artifact_launches=artifact_launches,
+                **{f"batch8_{k}": batch8_fwd[k]
+                   for k in per_pass_keys + ("host_ms", "bound_by")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,

@@ -583,3 +583,77 @@ def test_remat_bit_equal_on_card(cuda_device, policy):
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
     assert (f0, b0) == (8, 8) and (f1, b1) == (16, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_modulation", [True, False])
+def test_operator_matches_direct_launch(cuda_device, use_modulation):
+    """The registered operator (a trace's route), the wrapper without a
+    gradient (eager code's route) and the launcher called directly run the
+    same kernel: the same bits, one launch counted each."""
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    args = item_inputs(64, 2048, 2, 5, torch.bfloat16, cuda_device)
+    args = args if use_modulation else args[:9] + [None] * 4
+    with torch.inference_mode():
+        before = fused_resnet_item.launches
+        op = torch.ops.audio_diffusion_torch.fused_resnet_item(
+            *args, GROUPS, 1e-5, use_modulation)
+        assert fused_resnet_item.launches == before + 1
+        routed = fused_resnet_item(*args, groups=GROUPS,
+                                   use_modulation=use_modulation)
+        direct = resnet._launch_forward(args[0], args[1:], GROUPS, 1e-5,
+                                        use_modulation, keep=False)[0]
+    assert fused_resnet_item.launches == before + 3
+    assert torch.equal(op, direct) and torch.equal(routed, direct)
+
+
+@pytest.mark.cuda
+def test_pcm16_and_dequantization_on_card(cuda_device):
+    """to_pcm16 and int8/int4 dequantization (f32 and bf16) give the CPU's
+    bits on the card."""
+    from audio_diffusion_torch import dequantize_params, quantize_params
+    from audio_diffusion_torch.serve import to_pcm16
+
+    rs = np.random.default_rng(0)
+    x = torch.from_numpy(rs.uniform(-1.3, 1.3, (2, 4096)).astype(np.float32))
+    x[0, :3] = torch.tensor([0.5 / 32767, -0.5 / 32767, 2.5 / 32767])
+    assert torch.equal(to_pcm16(x.to(cuda_device)).cpu(), to_pcm16(x))
+    params = {"a.weight": torch.from_numpy(
+                  rs.standard_normal((96, 257)).astype(np.float32)),
+              "conv1_kernel": torch.from_numpy(
+                  rs.standard_normal((3, 64, 64)).astype(np.float32))}
+    for bits in (8, 4):
+        cpu = quantize_params(params, min_size=16, bits=bits)
+        card = quantize_params({k: v.to(cuda_device)
+                                for k, v in params.items()},
+                               min_size=16, bits=bits)
+        for name in params:
+            assert torch.equal(card[name].q.cpu(), cpu[name].q), name
+            assert torch.equal(card[name].qscale.cpu(), cpu[name].qscale)
+        for dtype in (None, torch.bfloat16):
+            want = dequantize_params(cpu, dtype)
+            got = dequantize_params(card, dtype)
+            for name in params:
+                assert torch.equal(got[name].cpu(), want[name]), name
+
+
+@pytest.mark.cuda
+def test_export_on_card_records_the_operator(cuda_device, tmp_path):
+    """On the card the exported step holds one operator node per item and
+    the artifact gives model.sample's bits."""
+    from audio_diffusion_torch import export_sampler, load_sampler
+
+    model = DiffusionModel(net_t=UNetV0, in_channels=2, channels=[8, 32],
+                           factors=[1, 2], items=[1, 1],
+                           modulation_features=32, dtype=torch.bfloat16)
+    export_sampler(model, tmp_path, length=256, num_steps=3)
+    program = torch.export.load(tmp_path / "step.pt2")
+    ops = [n for n in program.graph.nodes if n.op == "call_function"
+           and "fused_resnet_item" in str(n.target)]
+    assert len(ops) == 4  # two items, down and up
+    sampler, manifest = load_sampler(tmp_path)
+    assert manifest["platforms"] == ["cuda"]
+    noise = torch.randn(1, 2, 256, device=cuda_device)
+    assert torch.equal(sampler(model.params, noise),
+                       model.sample(noise, num_steps=3))

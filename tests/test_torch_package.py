@@ -23,7 +23,9 @@ def test_import_loads_no_jax():
             "audio_diffusion_torch.models.encoders, "
             "audio_diffusion_torch.models.tasks, "
             "audio_diffusion_torch.data, audio_diffusion_torch.train, "
-            "audio_diffusion_torch.cli, audio_diffusion_torch.__main__;"
+            "audio_diffusion_torch.cli, audio_diffusion_torch.__main__, "
+            "audio_diffusion_torch.serve, audio_diffusion_torch.server, "
+            "audio_diffusion_torch.export, audio_diffusion_torch.ops.quant;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -71,3 +73,31 @@ def test_task_model_extras_follow_the_model_device():
                                        window_length=4, stride=2),
                         device="cpu", **CFG)
     assert all(p.device.type == "cpu" for p in lt.params.values())
+
+
+SERVING_NAMES = ["GenerationService", "make_server", "wav_bytes", "QTensor",
+                 "quantize_params", "dequantize_params", "unpack_int4_leaves",
+                 "export_sampler", "load_sampler", "load_params",
+                 "ArtifactSampler"]
+
+
+@pytest.mark.parametrize("name", SERVING_NAMES)
+def test_serving_names_are_public(name):
+    import audio_diffusion_torch
+
+    assert name in audio_diffusion_torch.__all__
+    assert getattr(audio_diffusion_torch, name) is not None
+
+
+def test_serving_modules_import_no_jax_in_source():
+    """The new modules' sources name neither JAX nor the JAX package in an
+    import."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "audio_diffusion_torch"
+    for rel in ("serve.py", "server.py", "export.py", "ops/quant.py"):
+        src = (root / rel).read_text()
+        bad = re.findall(r"^\s*(?:from|import)\s+(jax\w*|flax|"
+                         r"audio_diffusion_tpu)\b", src, re.MULTILINE)
+        assert not bad, (rel, bad)
