@@ -26,7 +26,12 @@ state across, and the ``train``, ``sample`` and ``info`` commands of
 int8/int4 weight-only quantization (``QTensor``, ``quantize_params``,
 ``dequantize_params``, ``unpack_int4_leaves``), the exported sampler
 (``export_sampler``, ``load_sampler``, ``load_params``,
-``ArtifactSampler``) and the ``serve`` and ``export`` commands.
+``ArtifactSampler``, with encoder reuse) and the ``serve`` and ``export``
+commands; progressive and guidance distillation
+(``ProgressiveDistiller``) with the ``distill`` command, and evaluation:
+the band-profile metrics (``eval``), the corpus-trained embedder
+(``CorpusEmbedder``, ``frechet_embedding_distance``) and the ``eval``
+command.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -37,7 +42,9 @@ from .diffusion import (ARVDiffusion, ARVSampler, Diffusion, Distribution,
                         Schedule, SDESampler, UniformDistribution,
                         UniformLambdaSchedule, VDiffusion, VInpainter,
                         VSampler, mse_loss)
+from .distill import ProgressiveDistiller
 from .dsp import MelSpectrogram
+from .embed import CorpusEmbedder, frechet_embedding_distance
 from .export import ArtifactSampler, export_sampler, load_params, load_sampler
 from .longform import generate_long
 from .losses import MultiResolutionSTFTLoss, multi_resolution_stft_loss
@@ -108,4 +115,7 @@ __all__ = [
     "load_sampler",
     "load_params",
     "ArtifactSampler",
+    "ProgressiveDistiller",
+    "CorpusEmbedder",
+    "frechet_embedding_distance",
 ]

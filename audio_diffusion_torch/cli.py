@@ -10,14 +10,18 @@ describe a run (counterpart of audio_diffusion_tpu/cli.py)::
     python -m audio_diffusion_torch serve --model run1/model --port 8000
     python -m audio_diffusion_torch export --model run1/model --out art/
     python -m audio_diffusion_torch serve --model run1/model --artifact art/
+    python -m audio_diffusion_torch distill --model run1/model --data wavs/ \\
+        --base-steps 64 --target-steps 8
+    python -m audio_diffusion_torch eval --ref wavs/ --samples samples/
 
 ``--preset`` is a name from :mod:`audio_diffusion_torch.presets` or a path to
 a JSON file of UNetV0/DiffusionModel kwargs. The run directory holds
 ``config.json`` (the resolved config, with the same recorded keys as the
 JAX CLI's), ``ckpts/<step>`` (the Trainer's checkpoints) and ``model`` (the
-port's ``model.save`` file; ``--init-from`` takes such a file). Every
-command runs on the CUDA card unless ``--device`` says otherwise (``cpu``).
-``distill`` and ``eval`` are not ported yet.
+port's ``model.save`` file; ``--init-from`` takes such a file), and
+``model_distilled<steps>`` for each ``distill`` run. Every command but
+``eval`` (numpy on the host) runs on the CUDA card unless ``--device`` says
+otherwise (``cpu``).
 """
 from __future__ import annotations
 
@@ -44,12 +48,6 @@ _CLI_PRESETS = {
 _AE_ENCODER_DEFAULTS = dict(channels=512, factors=[2], num_blocks=[12],
                             out_channels=32, mel_channels=80)
 _AE_INJECT_DEPTH = 6
-
-_UNPORTED = {
-    "distill": "progressively distill a trained model",
-    "eval": "score generated WAVs against a reference corpus",
-}
-
 
 def _resolve_config(preset: str):
     """Returns (cfg kwargs, task name). JSON configs may carry an embedded
@@ -704,12 +702,152 @@ def _cmd_export(args) -> None:
           f"{args.out}")
 
 
-def _unported(args) -> None:
-    raise NotImplementedError(
-        f"`{args.cmd}` is not ported to audio_diffusion_torch yet (ROADMAP "
-        "Queue 1: the next slice ports distillation and the distill command, "
-        "a later one eval); use python -m audio_diffusion_tpu "
-        f"{args.cmd}")
+def _cmd_distill(args) -> None:
+    """Progressive distillation (distill.py) of a trained run: halve the
+    sampling step count stage by stage, so serving runs at --target-steps.
+    The distilled parameters drop into the ordinary `sample`/`serve`
+    commands::
+
+        python -m audio_diffusion_torch distill --model run/model \\
+            --data wavs/ --base-steps 64 --target-steps 8
+        python -m audio_diffusion_torch sample \\
+            --model run/model_distilled8 --steps 8 --out fast/
+    """
+    from .distill import ProgressiveDistiller
+
+    device = _device(args)
+    cfg, task, _, _ = _load_run_config(args)
+    if task != "unconditional":
+        raise SystemExit(
+            f"distill drives unconditional models; a {task} model's "
+            "conditioning channels need the Python API "
+            "(ProgressiveDistiller.stage(**cond))")
+    if args.guidance_scale is not None and not cfg.get("use_embedding_cfg"):
+        raise SystemExit(
+            "--guidance-scale requires a CFG model (use_embedding_cfg in "
+            "the run config); this run has no guidance to distill")
+    if args.guidance_scale is not None and args.embedding_dir is None:
+        raise SystemExit(
+            "--guidance-scale needs --embedding-dir: guidance distillation "
+            "trains on (audio, embedding) pairs")
+    # The halving ladder must land exactly on the target.
+    stages, n = 0, args.base_steps
+    while n > args.target_steps and n % 2 == 0:
+        n //= 2
+        stages += 1
+    if n != args.target_steps or stages == 0:
+        raise SystemExit(
+            f"--target-steps {args.target_steps} is not reachable from "
+            f"--base-steps {args.base_steps} by halving")
+    model = _build_model(cfg, "v", device, task)
+    model.load(args.model)
+
+    if args.embedding_dir is not None:
+        # Paired embeddings ride each batch as (x, cond) tuples (host data
+        # path, as in train --embedding-dir), so the teacher's conditional
+        # predictions match how the model was trained.
+        from .data import AudioDataset
+
+        ds = AudioDataset(args.data, crop_frames=args.crop,
+                          batch_size=args.batch, seed=args.seed,
+                          return_indices=True)
+        print(f"dataset: {len(ds.files)} files, {ds.channels} ch @ "
+              f"{ds.sample_rate} Hz, crop {args.crop}, paired embeddings "
+              f"from {args.embedding_dir}")
+        batches = _paired_feed(ds, _embedding_table(ds, args.embedding_dir))
+    else:
+        batches = iter(_load_dataset(args, device))
+    distiller = ProgressiveDistiller(model, base_steps=args.base_steps,
+                                     learning_rate=args.lr)
+    if args.guidance_scale is not None:
+        distiller.guidance_stage(batches,
+                                 embedding_scale=args.guidance_scale,
+                                 num_train_steps=args.guidance_steps,
+                                 log_every=args.log_every)
+        print(f"guidance stage done: CFG scale {args.guidance_scale} "
+              "distilled into a single conditional pass")
+    for _ in range(stages):
+        distiller.stage(batches, num_train_steps=args.stage_steps,
+                        log_every=args.log_every)
+        print(f"stage done: model now samples at {distiller.steps} steps")
+    out = Path(args.out) if args.out else (
+        Path(args.model).parent / f"model_distilled{args.target_steps}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    model.save(out)
+    # `sample --model OUT` reads OUT's sibling config.json; an --out outside
+    # the run has none, so the run's record is copied there.
+    src_cfg = Path(args.model).parent / "config.json"
+    dst_cfg = out.parent / "config.json"
+    if src_cfg.exists() and not dst_cfg.exists():
+        dst_cfg.write_text(src_cfg.read_text())
+    print(f"saved distilled params to {out} — sample with "
+          f"--model {out} --steps {args.target_steps}")
+
+
+def _cmd_eval(args) -> None:
+    """Score generated WAVs against a reference corpus: third-octave
+    band-profile distances, their set-level Fréchet distance and the
+    samples' diversity, each beside a white-noise baseline (eval.py). One
+    JSON summary line last."""
+    import numpy as np
+
+    from .data import wav_probe, wav_read
+    from .eval import (band_distance, band_profile, frechet_band_distance,
+                       pairwise_diversity)
+
+    refs = sorted(Path(args.ref).glob("*.wav"))[:args.max_ref]
+    if not refs:
+        raise SystemExit(f"no .wav files under {args.ref}")
+    samples = sorted(Path(args.samples).glob("*.wav"))
+    if not samples:
+        raise SystemExit(f"no .wav files under {args.samples}")
+
+    # One common crop so every profile lives on the same band grid.
+    lengths = [wav_probe(f)[2] for f in refs + samples]
+    crop = min([args.crop] + lengths) if args.crop else min(lengths)
+    sr = args.sample_rate or wav_probe(refs[0])[1]
+
+    ref_audio = np.stack([wav_read(f, 0, crop) for f in refs])
+    ref_prof = band_profile(ref_audio, sr)
+    rng = np.random.default_rng(0)
+    noise_base = band_distance(band_profile(
+        rng.standard_normal(ref_audio.shape[1:]).astype(np.float32)
+        * float(ref_audio.std()), sr), ref_prof)
+
+    dists = []
+    sample_audio = []
+    for f in samples:
+        x = wav_read(f, 0, crop)
+        sample_audio.append(x)
+        d = band_distance(band_profile(x, sr), ref_prof)
+        dists.append(d)
+        print(f"{f.name}: band-dist {d:.3f}, rms {x.std():.3f}, "
+              f"peak {np.abs(x).max():.3f}, "
+              f"finite {bool(np.isfinite(x).all())}")
+    div = (pairwise_diversity(np.stack(sample_audio), sr)
+           if len(sample_audio) >= 2 else None)
+    # The set-level Fréchet distance in band-profile space, against a set
+    # of white-noise clips of the same size at the corpus rms.
+    fbd = fbd_noise = None
+    if len(sample_audio) >= 2 and len(refs) >= 2:
+        fbd = frechet_band_distance(ref_audio, np.stack(sample_audio), sr)
+        noise_set = (rng.standard_normal((len(sample_audio),)
+                                         + ref_audio.shape[1:])
+                     .astype(np.float32) * float(ref_audio.std()))
+        fbd_noise = frechet_band_distance(ref_audio, noise_set, sr)
+
+    def rounded(v):
+        return round(v, 4) if v is not None else None
+
+    summary = {"num_samples": len(samples), "sample_rate": sr,
+               "crop": int(crop),
+               "band_dist_mean": round(float(np.mean(dists)), 4),
+               "band_dist_worst": round(float(np.max(dists)), 4),
+               "noise_baseline": round(noise_base, 4),
+               "frechet_band_dist": rounded(fbd),
+               "frechet_noise_baseline": rounded(fbd_noise),
+               "pairwise_diversity": rounded(div)}
+    print(json.dumps(summary))
 
 
 def main(argv=None) -> None:
@@ -911,12 +1049,61 @@ def main(argv=None) -> None:
     device_flag(x)
     x.set_defaults(fn=_cmd_export)
 
-    for name, help_text in _UNPORTED.items():
-        u = sub.add_parser(name, help=f"{help_text} (not ported yet)",
-                           add_help=False)
-        u.set_defaults(fn=_unported)
+    d = sub.add_parser(
+        "distill", help="progressively distill a trained model to fewer "
+        "sampling steps (64 -> 8)")
+    d.add_argument("--model", required=True,
+                   help="model file saved by `train` (…/model)")
+    d.add_argument("--data", required=True,
+                   help="directory of .wav files (the training corpus)")
+    d.add_argument("--preset", default=None,
+                   help="preset/JSON config; defaults to the config.json "
+                        "recorded next to the model file")
+    d.add_argument("--base-steps", type=int, default=64,
+                   help="step count the teacher is considered to run at")
+    d.add_argument("--target-steps", type=int, default=8,
+                   help="distilled step count (base halved stage by stage)")
+    d.add_argument("--stage-steps", type=int, default=2000,
+                   help="training steps per halving stage")
+    d.add_argument("--lr", type=float, default=2e-5)
+    d.add_argument("--batch", type=int, default=4)
+    d.add_argument("--crop", type=int, default=2**18)
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--log-every", type=int, default=200)
+    d.add_argument("--data-placement", choices=("auto", "host", "device"),
+                   default="auto")
+    d.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    d.add_argument("--embedding-dir", default=None,
+                   help="paired per-file .npy embeddings (text-conditional "
+                        "runs trained with train --embedding-dir)")
+    d.add_argument("--guidance-scale", type=float, default=None,
+                   help="distill classifier-free guidance at this scale "
+                        "into a single conditional pass first (Meng et "
+                        "al. 2023); requires --embedding-dir")
+    d.add_argument("--guidance-steps", type=int, default=2000,
+                   help="training steps for the guidance stage")
+    d.add_argument("--out", default=None,
+                   help="output params file (default: "
+                        "<run>/model_distilled<target>)")
+    device_flag(d)
+    d.set_defaults(fn=_cmd_distill)
 
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.fn is not _unported:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    e = sub.add_parser(
+        "eval", help="score generated WAVs against a reference corpus "
+        "(third-octave band-profile distance, Fréchet distance, "
+        "diversity)")
+    e.add_argument("--ref", required=True,
+                   help="directory of reference corpus WAVs")
+    e.add_argument("--samples", required=True,
+                   help="directory of generated WAVs to score")
+    e.add_argument("--crop", type=int, default=None,
+                   help="analysis length in frames (default: shortest "
+                        "file among refs+samples)")
+    e.add_argument("--max-ref", type=int, default=16,
+                   help="number of reference files for the corpus profile")
+    e.add_argument("--sample-rate", type=int, default=None,
+                   help="override the rate probed from the first ref")
+    e.set_defaults(fn=_cmd_eval)
+
+    args = ap.parse_args(argv)
     args.fn(args)

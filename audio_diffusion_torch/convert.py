@@ -47,6 +47,14 @@ run the tree there).
 ``t5_params_from_flax(params)`` takes the Flax T5 encoder's parameter tree
 (``FlaxT5EncoderModel.params``) and returns the ``state_dict`` of
 ``ops.t5.T5EncoderStack``, also strictly.
+
+``embedder_params_from_flax(params)`` takes the JAX ``CorpusEmbedder``'s
+parameter tree (``{"params": {"Conv_i": ..., "Dense_0": ...,
+"Dense_1": ...}}``) and returns the port embedder's parameters
+(``embed.CorpusEmbedder.train``'s dict): a Conv kernel [k, in, out]
+becomes an ``nn.Conv1d`` weight [out, in, k], a Dense kernel [in, out] an
+``nn.Linear`` weight [out, in]. ``embedder_params_to_flax(params)`` is its
+inverse. Both strict.
 """
 from __future__ import annotations
 
@@ -60,7 +68,8 @@ from torch import Tensor
 from .ops.quant import QTensor
 
 __all__ = ["params_from_jax", "params_to_jax", "t5_params_from_flax",
-           "train_state_from_jax"]
+           "train_state_from_jax", "embedder_params_from_flax",
+           "embedder_params_to_flax"]
 
 _RESNET_LEAVES = ("gn1_scale", "gn1_bias", "conv1_kernel", "conv1_bias",
                   "gn2_scale", "gn2_bias", "conv2_kernel", "conv2_bias")
@@ -415,3 +424,61 @@ def t5_params_from_flax(params: Mapping) -> Dict[str, Tensor]:
         a = np.array(a, dtype=np.float32)
         out[name] = torch.from_numpy(a.T.copy() if is_dense else a)
     return out
+
+
+# Flax kernel -> torch weight permutation by layer kind (and back, argsort).
+_EMBEDDER_KERNELS = {"Conv": (2, 1, 0), "Dense": (1, 0)}
+
+
+def _embedder_kind(name: str) -> str:
+    kind = name.split("_")[0]
+    if kind not in _EMBEDDER_KERNELS:
+        raise ValueError(f"embedder params: unexpected layer {name!r}")
+    return kind
+
+
+def embedder_params_from_flax(params: Mapping) -> Dict[str, Tensor]:
+    """The JAX ``CorpusEmbedder``'s parameter tree (with or without the
+    outer ``{"params": ...}``) -> the port embedder's parameters (f32 CPU
+    tensors named ``"<layer>.weight"``/``"<layer>.bias"``). Strict: a
+    leftover or a missing leaf raises."""
+    tree = _plain(params)
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    walk = _Walk("embedder_params_from_flax")
+    out = {}
+    for layer in sorted(tree):
+        node = walk.take(tree, layer, "")
+        perm = _EMBEDDER_KERNELS[_embedder_kind(layer)]
+        kernel = np.array(walk.take(node, "kernel", layer), np.float32)
+        out[f"{layer}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(perm)))
+        if "bias" in node:
+            out[f"{layer}.bias"] = torch.from_numpy(np.array(
+                walk.take(node, "bias", layer), np.float32))
+        walk.done(node, f"{layer}.")
+    walk.done(tree, "")
+    return out
+
+
+def embedder_params_to_flax(params: Mapping[str, Tensor]) -> dict:
+    """The port embedder's parameters -> the JAX ``CorpusEmbedder``'s tree
+    ``{"params": ...}`` of float32 numpy arrays. Strict: a name other than
+    ``"<layer>.weight"``/``"<layer>.bias"``, or a layer without its
+    weight, raises."""
+    tree: Dict[str, dict] = {}
+    for name, t in params.items():
+        layer, _, leaf = name.partition(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            perm = np.argsort(_EMBEDDER_KERNELS[_embedder_kind(layer)])
+            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(
+                a.transpose(perm))
+        elif leaf == "bias":
+            tree.setdefault(layer, {})["bias"] = a
+        else:
+            raise ValueError(f"embedder_params_to_flax: unexpected {name!r}")
+    missing = sorted(k for k, node in tree.items() if "kernel" not in node)
+    if missing:
+        raise ValueError(f"embedder_params_to_flax: no weight for {missing}")
+    return {"params": tree}

@@ -69,7 +69,7 @@ class DeviceCorpus:
         if mesh is not None:
             raise NotImplementedError(
                 "DeviceCorpus mesh= (a corpus replicated over several GPUs) "
-                "is not ported yet (ROADMAP Queue 1, item 10)")
+                "is not ported yet (ROADMAP Queue 1, item 4)")
         self.device = resolve_device(device)
         # Reuse AudioDataset's discovery/validation/probe pass: file list,
         # channel resolution, too-short/mismatch skips, PCM16 detection.

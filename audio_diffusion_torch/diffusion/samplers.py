@@ -15,8 +15,10 @@ then runs on the dict dequantized to the net's compute dtype
 ``export.py`` traces one at a time: ``coefficients(num_steps, device)``
 gives the per-step f32 table, ``start(x_noisy)`` the carry (``x_noisy``
 and zero tensors of its shape), and ``step(net, carry, row, **kwargs)``
-one step on row i of the table. ``sample`` runs those same steps, so an
-exported sampler gives ``sample``'s bits.
+one step on row i of the table (with ``return_hidden=True`` it also
+returns the net's encoder state, and ``hidden=`` decodes one: the two step
+forms of encoder reuse). ``sample`` runs those same steps, so an exported
+sampler gives ``sample``'s bits.
 """
 from __future__ import annotations
 
@@ -75,6 +77,54 @@ def _check_reuse(num_steps: int, k: int) -> None:
             f"({k}): the encoder runs once per chunk of k steps")
 
 
+def _net_v(net, x: Tensor, row: Dict[str, Tensor], kwargs: Dict):
+    """(the net's v at this row's σ, in x's dtype; its encoder state, or
+    None unless ``kwargs`` hold ``return_hidden=True``)."""
+    out = net(x, row["sigma"].expand(x.shape[0]).to(x.dtype), **kwargs)
+    return out if kwargs.get("return_hidden") else (out, None)
+
+
+def _stepped(carry: Tuple[Tensor, ...], enc, kwargs: Dict):
+    """A step's result: (carry, encoder state) where the step was asked for
+    the state, else the carry."""
+    return (carry, enc) if kwargs.get("return_hidden") else carry
+
+
+def reuse_kwargs(i: int, k: int, enc) -> Dict:
+    """The extra step kwargs of step ``i`` under ``encoder_reuse=k``: none
+    when k <= 1; on the first step of each chunk of k, ``return_hidden``;
+    on the others, the chunk's encoder state ``enc``."""
+    if k <= 1:
+        return {}
+    return {"return_hidden": True} if i % k == 0 else {"hidden": enc}
+
+
+def _step_loop(sampler, params: Dict[str, Tensor], x_noisy: Tensor,
+               num_steps: int, encoder_reuse: int, show_progress: bool,
+               kwargs: Dict) -> Tensor:
+    """The loop of a sampler written as steps (``coefficients``, ``start``,
+    ``step``), with encoder reuse in chunks of ``encoder_reuse`` steps."""
+    k = int(encoder_reuse)
+    _check_reuse(num_steps, k)
+    params = cast_inference_params(params, sampler.net.compute_dtype)
+    # σ/α/β stay f32 under a bf16 carry; only the carry is in x's dtype.
+    table = sampler.coefficients(num_steps, x_noisy.device)
+
+    def loop(step_net):
+        carry, enc = sampler.start(x_noisy), None
+        for i in range(num_steps):
+            row = {name: t[i] for name, t in table.items()}
+            extra = reuse_kwargs(i, k, enc)
+            carry = sampler.step(step_net(), carry, row, **extra, **kwargs)
+            if "return_hidden" in extra:
+                carry, enc = carry
+            if show_progress:
+                print(f"Sampling (noise={float(row['sigma']):.2f})")
+        return carry[0]
+
+    return run_steps(sampler.net, params, loop)
+
+
 class VSampler(Sampler):
     """Deterministic angular-DDIM v-sampler. Per step::
 
@@ -110,12 +160,14 @@ class VSampler(Sampler):
                 + row["beta_next"] * noise_pred).to(x.dtype)
 
     def step(self, net, carry: Tuple[Tensor, ...], row: Dict[str, Tensor],
-             **kwargs) -> Tuple[Tensor, ...]:
+             **kwargs):
         """One step from ``carry`` on this step's row of the table; the net
-        sees σ in the carry dtype."""
+        sees σ in the carry dtype. With ``return_hidden=True`` it returns
+        (carry, the net's encoder state); ``hidden=`` decodes such a state
+        (encoder reuse)."""
         (x,) = carry
-        v = net(x, row["sigma"].expand(x.shape[0]).to(x.dtype), **kwargs)
-        return (self.update(x, v, row),)
+        v, enc = _net_v(net, x, row, kwargs)
+        return _stepped((self.update(x, v, row),), enc, kwargs)
 
     def sample(self, params: Dict[str, Tensor], x_noisy: Tensor,
                num_steps: int, show_progress: bool = False, unroll: int = 1,
@@ -128,32 +180,8 @@ class VSampler(Sampler):
         and decodes the k − 1 steps after it from that encoder state with
         the current σ (``hidden=``). Approximate; k = 1 is the exact
         sampler. ``num_steps`` must be a multiple of k."""
-        k = int(encoder_reuse)
-        _check_reuse(num_steps, k)
-        params = cast_inference_params(params, self.net.compute_dtype)
-        # σ/α/β stay f32 under a bf16 carry; only the carry is in x's dtype.
-        table = self.coefficients(num_steps, x_noisy.device)
-
-        def loop(step_net):
-            carry = self.start(x_noisy)
-            for i in range(num_steps):
-                row = {name: t[i] for name, t in table.items()}
-                net = step_net()
-                if k <= 1:
-                    carry = self.step(net, carry, row, **kwargs)
-                else:
-                    (x,) = carry
-                    sig = row["sigma"].expand(x.shape[0]).to(x.dtype)
-                    if i % k == 0:
-                        v, enc = net(x, sig, return_hidden=True, **kwargs)
-                    else:
-                        v = net(x, sig, hidden=enc, **kwargs)
-                    carry = (self.update(x, v, row),)
-                if show_progress:
-                    print(f"Sampling (noise={float(row['sigma']):.2f})")
-            return carry[0]
-
-        return run_steps(self.net, params, loop)
+        return _step_loop(self, params, x_noisy, num_steps, encoder_reuse,
+                          show_progress, kwargs)
 
 
 class SDESampler(Sampler):
@@ -268,10 +296,11 @@ class DPMSampler(Sampler):
                 x0.to(x.dtype))
 
     def step(self, net, carry: Tuple[Tensor, ...], row: Dict[str, Tensor],
-             **kwargs) -> Tuple[Tensor, ...]:
+             **kwargs):
+        """As :meth:`VSampler.step`; the previous x0 rides in the carry."""
         x, x0_prev = carry
-        v = net(x, row["sigma"].expand(x.shape[0]).to(x.dtype), **kwargs)
-        return self.update(x, x0_prev, v, row)
+        v, enc = _net_v(net, x, row, kwargs)
+        return _stepped(self.update(x, x0_prev, v, row), enc, kwargs)
 
     def sample(self, params: Dict[str, Tensor], x_noisy: Tensor,
                num_steps: int, show_progress: bool = False, unroll: int = 1,
@@ -279,31 +308,8 @@ class DPMSampler(Sampler):
         """``encoder_reuse=k`` works as in :class:`VSampler`; the previous
         x0 is carried through the decoder-only steps. ``unroll`` is accepted
         and ignored."""
-        k = int(encoder_reuse)
-        _check_reuse(num_steps, k)
-        params = cast_inference_params(params, self.net.compute_dtype)
-        table = self.coefficients(num_steps, x_noisy.device)
-
-        def loop(step_net):
-            carry = self.start(x_noisy)
-            for i in range(num_steps):
-                row = {name: t[i] for name, t in table.items()}
-                net = step_net()
-                if k <= 1:
-                    carry = self.step(net, carry, row, **kwargs)
-                else:
-                    x, x0_prev = carry
-                    sig = row["sigma"].expand(x.shape[0]).to(x.dtype)
-                    if i % k == 0:
-                        v, enc = net(x, sig, return_hidden=True, **kwargs)
-                    else:
-                        v = net(x, sig, hidden=enc, **kwargs)
-                    carry = self.update(x, x0_prev, v, row)
-                if show_progress:
-                    print(f"Sampling (noise={float(row['sigma']):.2f})")
-            return carry[0]
-
-        return run_steps(self.net, params, loop)
+        return _step_loop(self, params, x_noisy, num_steps, encoder_reuse,
+                          show_progress, kwargs)
 
 
 class ARVSampler(Sampler):

@@ -11,7 +11,11 @@ What is exported is ONE sampler step, traced by ``torch.export`` with
 ``strict=False``: ``step(params, carry, row, arrays) -> carry``, the net's
 forward and the sampler's update. The loop runs in :func:`load_sampler`
 over the per-step coefficient table that the manifest holds, as the live
-sampler computed it on the exporting device. A trace of the whole loop
+sampler computed it on the exporting device. With ``encoder_reuse=k`` two
+step forms are traced: the full step, which also returns the net's encoder
+state (``step.pt2``), and the reuse step, which decodes that state
+(``reuse.pt2``); the loop runs them in chunks of k steps, as
+``VSampler(encoder_reuse=k)`` does. A trace of the whole loop
 would hold every step's nodes (50 x 42 items and the rest at the flagship)
 and take that many times as long to export, save and load (``PERF.md``).
 ``VSampler.sample`` and ``DPMSampler.sample`` run the very same steps
@@ -46,6 +50,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import Tensor, nn
 
+from .diffusion.samplers import _check_reuse, reuse_kwargs
 from .ops.kernels import resnet as _resnet  # noqa: F401  (the operator)
 from .ops.net import cast_inference_params
 from .ops.quant import dequantize_step_params
@@ -57,6 +62,7 @@ __all__ = ["export_sampler", "load_sampler", "load_params",
 KIND = "audio_diffusion_torch.sampler"
 _JAX_KIND = "audio_diffusion_tpu.sampler"
 _PROGRAM_NAME = "step.pt2"
+_REUSE_PROGRAM_NAME = "reuse.pt2"
 _MANIFEST_NAME = "manifest.json"
 
 
@@ -65,16 +71,30 @@ class _Step(nn.Module):
     in a tuple, outside the module tree, so none of its parameters is
     lifted into the program."""
 
-    def __init__(self, model, cond: Dict):
+    def __init__(self, model, cond: Dict, return_hidden: bool = False):
         super().__init__()
-        self._held = (model, cond)
+        self._held = (model, cond, return_hidden)
 
-    def forward(self, params, carry, row, arrays):
-        model, cond = self._held
+    def forward(self, params, carry, row, arrays, hidden=None):
+        """The step; with ``return_hidden``, (carry, the encoder state);
+        with ``hidden``, the reuse step decoding that state."""
+        model, cond, return_hidden = self._held
         net = model.net
         call = functools.partial(
             net.apply, dequantize_step_params(params, net.compute_dtype))
-        return model.sampler.step(call, tuple(carry), row, **cond, **arrays)
+        extra = ({"return_hidden": True} if return_hidden
+                 else {} if hidden is None else {"hidden": hidden})
+        return model.sampler.step(call, tuple(carry), row, **extra, **cond,
+                                  **arrays)
+
+
+def _export_step(module: nn.Module, args: Tuple):
+    """``torch.export`` of one step form, pruned; (program, nodes pruned).
+    The example inputs hold the parameters: they are kept out of the
+    file."""
+    program = torch.export.export(module, args, strict=False)
+    program.example_inputs = None
+    return program, _prune(program)
 
 
 def _prune(program) -> int:
@@ -116,16 +136,17 @@ def export_sampler(model, path, *, length: int, batch_size: int = 1,
     ``params=`` (default: the live parameters) sets only the shapes,
     dtypes and quantization the program takes. ``**cond`` scalars are
     baked in; ``**cond`` arrays (example arrays of the per-call shape)
-    become inputs of the program."""
+    become inputs of the program. ``encoder_reuse=k`` (k > 1, dividing
+    ``num_steps``) exports the full and the reuse step; the manifest
+    records k and the loaded sampler replays the chunks."""
     sampler = model.sampler
     if not all(hasattr(sampler, a) for a in ("coefficients", "start",
                                              "step")):
         raise ValueError(
             f"export traces one step of a VSampler or DPMSampler; "
             f"{type(sampler).__name__} has no step form")
-    if "encoder_reuse" in cond:
-        raise ValueError("encoder_reuse changes the step from step to step; "
-                         "an exported step cannot reuse the encoder")
+    reuse = int(cond.pop("encoder_reuse", 1))
+    _check_reuse(num_steps, reuse)
     p = model.split_params(params if params is not None else model.params)[0]
     device = model.device
     arrays: Dict[str, Tensor] = {}
@@ -150,12 +171,17 @@ def export_sampler(model, path, *, length: int, batch_size: int = 1,
         carry = sampler.start(noise)
         table = sampler.coefficients(num_steps, device)
         row = {k: t[0] for k, t in table.items()}
-        program = torch.export.export(
-            _Step(model, scalars), (example, carry, row, arrays),
-            strict=False)
-    # The example inputs hold the parameters: keep them out of the file.
-    program.example_inputs = None
-    pruned = _prune(program)
+        args = (example, carry, row, arrays)
+        full = _Step(model, scalars, return_hidden=reuse > 1)
+        program, pruned = _export_step(full, args)
+        programs = {_PROGRAM_NAME: program}
+        if reuse > 1:
+            # The reuse step's example encoder state: one eager full step
+            # on the example inputs.
+            _, hidden = full(*args)
+            programs[_REUSE_PROGRAM_NAME], pruned_reuse = _export_step(
+                _Step(model, scalars), args + (hidden,))
+            pruned += pruned_reuse
     out = [n for n in program.graph.nodes if n.op == "output"][0]
     out_val = out.args[0][0].meta["val"]
 
@@ -165,6 +191,7 @@ def export_sampler(model, path, *, length: int, batch_size: int = 1,
         "num_steps": num_steps,
         # The JAX artifact's scan unroll; one step is traced here.
         "unroll": 1,
+        "encoder_reuse": reuse,
         "platforms": [device.type],
         "sample_rate": (int(sample_rate) if sample_rate is not None
                         else None),
@@ -178,7 +205,7 @@ def export_sampler(model, path, *, length: int, batch_size: int = 1,
         "sampler": type(sampler).__name__,
         "carry": len(carry),
         "compute_dtype": _dtype_name(dtype),
-        "graph_nodes": len(program.graph.nodes),
+        "graph_nodes": sum(len(p.graph.nodes) for p in programs.values()),
         "pruned_nodes": pruned,
         "param_names": list(p),
         # The live sampler's table, as it computed it on this device: the
@@ -190,7 +217,8 @@ def export_sampler(model, path, *, length: int, batch_size: int = 1,
     manifest_text = json.dumps(manifest, indent=1)
     dest = Path(path)
     dest.mkdir(parents=True, exist_ok=True)
-    torch.export.save(program, dest / _PROGRAM_NAME)
+    for name, prog in programs.items():
+        torch.export.save(prog, dest / name)
     (dest / _MANIFEST_NAME).write_text(manifest_text)
     return manifest
 
@@ -227,15 +255,19 @@ def load_sampler(path, device=None) -> Tuple[Callable, Dict]:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{src} was exported for cuda; no CUDA device is "
                            "available")
-    program = torch.export.load(src / _PROGRAM_NAME)
-    # The first step of a sample checks every input's shape and dtype
-    # against the program; the same inputs then skip that check.
-    checked, step = program.module(), program.module()
-    step._forward_pre_hooks.clear()
+    reuse = int(manifest.get("encoder_reuse", 1))
+    # Each program's first step of a sample checks every input's shape and
+    # dtype against the program; the same inputs then skip that check.
+    names = [_PROGRAM_NAME] + ([_REUSE_PROGRAM_NAME] if reuse > 1 else [])
+    checked, fast = {}, {}
+    for name in names:
+        program = torch.export.load(src / name)
+        checked[name], fast[name] = program.module(), program.module()
+        fast[name]._forward_pre_hooks.clear()
     table = {k: torch.tensor(v, dtype=torch.float32, device=device)
              for k, v in manifest["coefficients"].items()}
     need = sorted(manifest.get("array_cond") or {})
-    names = manifest["param_names"]
+    param_names = manifest["param_names"]
     shape = tuple(manifest["noise_shape"])
     dtype = manifest["compute_dtype"]
     dtype = None if dtype is None else getattr(torch, dtype)
@@ -244,23 +276,33 @@ def load_sampler(path, device=None) -> Tuple[Callable, Dict]:
         if sorted(arrays) != need:
             raise ValueError(f"artifact requires array conditioning {need}, "
                              f"got {sorted(arrays)}")
-        if set(params) != set(names):
+        if set(params) != set(param_names):
             raise ValueError(
                 "params do not match the exported configuration: "
-                f"{sorted(set(params) ^ set(names))[:8]}")
+                f"{sorted(set(params) ^ set(param_names))[:8]}")
         if tuple(noise.shape) != shape:
             raise ValueError(f"artifact expects noise {shape}, got "
                              f"{tuple(noise.shape)}")
         with torch.inference_mode():
-            p = cast_inference_params({n: params[n] for n in names}, dtype)
+            p = cast_inference_params({n: params[n] for n in param_names},
+                                      dtype)
             noise = torch.as_tensor(noise, device=device)
             carry = (noise,) + tuple(torch.zeros_like(noise)
                                      for _ in range(manifest["carry"] - 1))
             arrays = {k: torch.as_tensor(arrays[k], device=device)
                       for k in need}
+            enc, ran = None, set()
             for i in range(manifest["num_steps"]):
-                carry = (checked if i == 0 else step)(
-                    p, carry, {k: t[i] for k, t in table.items()}, arrays)
+                extra = reuse_kwargs(i, reuse, enc)
+                name = _REUSE_PROGRAM_NAME if "hidden" in extra \
+                    else _PROGRAM_NAME
+                step = fast[name] if name in ran else checked[name]
+                ran.add(name)
+                hidden = (enc,) if "hidden" in extra else ()
+                carry = step(p, carry, {c: t[i] for c, t in table.items()},
+                             arrays, *hidden)
+                if "return_hidden" in extra:
+                    carry, enc = carry
             return carry[0]
 
     return sampler, manifest
@@ -294,17 +336,22 @@ class ArtifactSampler:
                                    else self.manifest["platforms"][0])
         self.params = params
         self.num_steps = int(self.manifest["num_steps"])
+        self.encoder_reuse = int(self.manifest.get("encoder_reuse", 1))
         b, c, t = self.manifest["noise_shape"]
         self.batch_size, self.in_channels, self.length = b, c, t
         self.sample_rate = self.manifest.get("sample_rate")
         self.array_cond = dict(self.manifest.get("array_cond") or {})
 
     def sample(self, noise, *, num_steps: Optional[int] = None,
-               params: Optional[Dict] = None, **cond) -> Tensor:
-        if num_steps is not None and num_steps != self.num_steps:
-            raise ValueError(
-                f"artifact was exported at num_steps={self.num_steps}; "
-                f"per-request num_steps={num_steps} needs its own artifact")
+               params: Optional[Dict] = None,
+               encoder_reuse: Optional[int] = None, **cond) -> Tensor:
+        for name, asked, fixed in (
+                ("num_steps", num_steps, self.num_steps),
+                ("encoder_reuse", encoder_reuse, self.encoder_reuse)):
+            if asked is not None and asked != fixed:
+                raise ValueError(
+                    f"artifact was exported at {name}={fixed}; per-request "
+                    f"{name}={asked} needs its own artifact")
         extra = set(cond) - set(self.array_cond)
         if extra:
             raise ValueError(

@@ -73,7 +73,7 @@ def make_train_step(
     if mesh is not None or zero1:
         raise NotImplementedError(
             "make_train_step mesh=/zero1= (multi-GPU) is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
+            "(ROADMAP Queue 1, item 4)")
 
     def init_state(params: Dict[str, Tensor],
                    generator: torch.Generator) -> TrainState:

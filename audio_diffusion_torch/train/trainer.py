@@ -254,7 +254,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer mesh= (multi-GPU training) is not ported yet "
-                "(ROADMAP Queue 1, item 10)")
+                "(ROADMAP Queue 1, item 4)")
         self.model = model
         self.config = config or TrainerConfig()
         self.mesh = mesh

@@ -93,6 +93,19 @@ the forward kernel runs again in the backward's recompute; 42 backward).
 (6,300 = 42 x 50 x 3), ``quant_launches`` the int8 sample's and
 ``artifact_launches`` the exported sampler's (2,100 each); the
 ``batch8_*`` keys are the per-pass sums at batch 8.
+Distillation and evaluation: ``artifact_reuse_launches`` counts the
+``encoder_reuse=2`` artifact's sample (1,575), ``distill_launches_per_step``
+a halving step of ``ProgressiveDistiller`` on the flagship at batch 8
+(126 forward: two no-grad teacher passes and the student's; 42 backward),
+``distilled_sample_launches`` the 4-step sample after it (168), and
+``guidance_distill_launches_per_step`` a guidance step on the
+text-conditional flagship (84 forward: the teacher's guided pass at item
+batch 16 and the student's at 8; 42 backward). Before them the targets
+and a 3-step stage of a small net are held on the card against the CPU
+(host-made draws through the replaced ``diffusion.noise`` hooks); the
+``CorpusEmbedder`` trains at its defaults on a synthesized corpus and
+embeds on the card against the CPU; the CLI's ``distill``, ``sample``
+and ``eval`` run as subprocesses.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2 and the served batch of 8, with the same bars.
@@ -101,6 +114,13 @@ Serving's bars: quantized leaves on the card bit-equal to the CPU's and a
 the artifact's sample and a seed in two batches bit for bit; the int8
 sample's relative RMS error against bf16 under 0.5 (a sanity bar: its
 value is reported).
+Distillation's bars: the small net's targets within 1e-3 of the CPU's
+(f32); after a 3-step stage the last loss rel 1e-4 and every parameter
+within 2·lr per step (Adam's step is about lr·sign(g)); the flagship's
+stage moves every parameter (the guidance stage all but the fixed
+embedding, which only the teacher's guided pass reads), and a stage
+whose feed fails at step 2 leaves ``model.params`` bit-equal. The
+embedder's ``embed`` on the card within 1e-4 of the CPU's, unit norm.
 
 Tolerances (kernel vs plain version, same inputs): float32 with TF32 off,
 max-abs ≤ 2e-4·max(1, max|y|), sums taken in another order; bfloat16
@@ -220,6 +240,13 @@ SMALL_COND = dict(cross_attentions=[0, 0, 1], context_channels=[0, 0, 5],
                   embedding_features=32)
 SMALL_AR = dict(channels=[8, 32, 64], factors=[1, 4, 2], items=[1, 2, 1],
                 attentions=[0, 0, 1], attention_heads=4, attention_features=8)
+# Distillation: the flagship's halving stage from 8 to 4 steps (its
+# targets at N = 4), the guided net's stage at the sample's guidance scale;
+# the corpus embedder at its defaults on 16 stereo files of 4 s.
+DISTILL_BASE_STEPS = 8
+EMBED_FILES, EMBED_SECONDS, EMBED_STEPS = 16, 4, 20
+# ms per train step by phase_train's phase name, for the distill phases.
+TRAIN_MS = {}
 
 
 def emit(obj) -> None:
@@ -1365,6 +1392,7 @@ def phase_train(model, phase="train", channels=2, length=LENGTH,
         launches = (item.launches, item.backward_launches)
     peak = torch.cuda.max_memory_allocated()
     median = sorted(step_ms)[len(step_ms) // 2]
+    TRAIN_MS[phase] = median
     still = [n for (n, p), p0 in zip(model.params.items(), before)
              if torch.equal(p.detach(), p0)]
     masked = [int(m.sum()) for m in masks]
@@ -2547,6 +2575,50 @@ def phase_export_flagship(model, noise, root: Path):
     if not (bit_equal and served_equal):
         raise AssertionError("export_flagship: the artifact's sample "
                              "differs from model.sample")
+    return launches, phase_export_reuse_flagship(model, noise, root)
+
+
+def phase_export_reuse_flagship(model, noise, root: Path):
+    """``export_sampler(..., encoder_reuse=2)`` of the flagship at [1, 2,
+    2^18], 50 steps: the full step (which returns the encoder state) and
+    the reuse step exported; the artifact's sample against
+    ``model.sample(noise, num_steps=50, encoder_reuse=2)`` bit for bit,
+    with 1,575 launches (25 full passes of 42, 25 decoder passes of 21;
+    counts set to 0 just before the artifact's sample). Returns them."""
+    import torch
+    from audio_diffusion_torch import ArtifactSampler, export_sampler
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    item = resnet.fused_resnet_item
+    art = root / "artifact_reuse"
+    t0 = time.perf_counter()
+    manifest = export_sampler(model, art, length=LENGTH, batch_size=1,
+                              num_steps=NUM_STEPS, sample_rate=48000,
+                              encoder_reuse=2)
+    export_s = time.perf_counter() - t0
+    nbytes = {p.name: p.stat().st_size for p in art.iterdir()}
+    sampler = ArtifactSampler(art, model.params)
+    want = model.sample(noise, num_steps=NUM_STEPS, encoder_reuse=2)
+    sampler.sample(noise)  # warm-up
+    torch.cuda.synchronize()
+    item.launches = 0
+    t0 = time.perf_counter()
+    got = sampler.sample(noise)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / NUM_STEPS
+    launches = item.launches
+    bit_equal = bool(torch.equal(got, want))
+    expected = NUM_STEPS // 2 * (2 * sum(ITEMS) + sum(ITEMS))
+    emit(dict(phase="export_reuse_flagship", shape=manifest["noise_shape"],
+              steps=NUM_STEPS, encoder_reuse=manifest["encoder_reuse"],
+              export_s=export_s, artifact_bytes=nbytes,
+              graph_nodes=manifest["graph_nodes"],
+              pruned_nodes=manifest["pruned_nodes"], ms_per_step=ms,
+              bit_equal=bit_equal, item_launches=launches,
+              expected_launches=expected))
+    if launches != expected or not bit_equal:
+        raise AssertionError(f"export_reuse_flagship: {launches} launches, "
+                             f"bit-equal {bit_equal}")
     return launches
 
 
@@ -2671,6 +2743,384 @@ def phase_cli_serve(root: Path):
                              f"{rate}, {pcm.shape}, rc {rc}, {stats}")
 
 
+def host_draws(seed):
+    """Stand-ins for the three draw hooks of ``diffusion.noise`` (normal,
+    randint, uniform) that draw on the host from one seeded CPU generator
+    and move the draw to the asked device, so a run on the card and one on
+    the CPU see the same draws. A context manager."""
+    import contextlib
+
+    import torch
+    from audio_diffusion_torch.diffusion import noise as noise_module
+
+    gen = torch.Generator().manual_seed(seed)
+    hooks = dict(
+        normal=lambda g, shape, dtype, device: torch.randn(
+            tuple(shape), generator=gen).to(dtype=dtype, device=device),
+        randint=lambda g, low, high, shape, device: torch.randint(
+            low, high, tuple(shape), generator=gen).to(device),
+        uniform=lambda g, shape, dtype, device: torch.rand(
+            tuple(shape), generator=gen).to(dtype=dtype, device=device))
+    stack = contextlib.ExitStack()
+    for name, fn in hooks.items():
+        stack.enter_context(mock.patch.object(noise_module, name, fn))
+    return stack
+
+
+def phase_distill_small_reference():
+    """Distillation on the small net, card (kernel path, f32) vs the same
+    weights on the CPU, every draw host-made through the replaced noise
+    hooks: the N = 4 teacher targets, the guidance targets of the small net
+    with cross-attention and CFG (scale 3), within the small reference's
+    bar; then a 3-step ``stage`` (Adam, lr 1e-4) on each device: the last
+    loss rel 1e-4 and every parameter within 2·lr per step (Adam's step is
+    about lr·sign(g), and a gradient of rounding noise may take either
+    sign)."""
+    import torch
+    from audio_diffusion_torch import (DiffusionModel, ProgressiveDistiller,
+                                       UNetV0)
+    from audio_diffusion_torch.distill import (make_guidance_targets,
+                                               make_teacher_targets)
+
+    guided = dict(SMALL_CFG, cross_attentions=[0, 0, 1],
+                  use_embedding_cfg=True, embedding_max_length=8,
+                  embedding_features=32)
+    pairs = {}
+    for name, cfg in (("teacher", SMALL_CFG), ("guidance", guided)):
+        cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **cfg)
+        fill_zero_params(cpu)
+        gpu = DiffusionModel(net_t=UNetV0, **cfg)
+        gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+        pairs[name] = (cpu, gpu)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 2, 256, generator=gen).clamp_(-1.0, 1.0)
+    emb = torch.randn(2, 8, 32, generator=gen)
+
+    def targets(model, kind):
+        dev = model.device
+        with host_draws(12):
+            if kind == "teacher":
+                out = make_teacher_targets(model.net, 4)(
+                    model.params, None, x.to(dev))
+            else:
+                out = make_guidance_targets(model.net, 3.0)(
+                    model.params, None, x.to(dev), embedding=emb.to(dev))
+        return [t.cpu() for t in out]
+
+    errs = {}
+    for kind, (cpu, gpu) in pairs.items():
+        want, got = targets(cpu, kind), targets(gpu, kind)
+        for name, w, g in zip(("x_t", "sigma", "v_target"), want, got):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"distill small reference {kind} "
+                                     f"{name}: shape or non-finite values")
+            errs[f"{kind}_{name}"] = (g - w).abs().max().item()
+    losses, params = [], []
+    for model in pairs["teacher"]:
+        dev = model.device
+        with host_draws(13):
+            m = ProgressiveDistiller(model, base_steps=8).stage(
+                (x.to(dev) for _ in range(TRAIN_STEPS)), TRAIN_STEPS,
+                log_fn=lambda s: None)
+        losses.append(float(m["loss"]))
+        params.append({k: v.detach().cpu() for k, v in model.params.items()})
+    lr = 1e-4
+    diffs = [(params[1][k] - v).abs() for k, v in params[0].items()]
+    stage_err = max(d.max().item() for d in diffs)
+    beyond = sum(int((d > 1e-6).sum()) for d in diffs)
+    emit(dict(phase="distill_small_reference", dtype="float32",
+              student_steps=4, guidance_scale=3.0, max_abs_err=errs,
+              tolerance=1e-3, stage_steps=TRAIN_STEPS, stage_loss=losses,
+              stage_param_max_abs_err=stage_err,
+              stage_param_elements_beyond_1e6=beyond,
+              stage_param_elements=sum(d.numel() for d in diffs),
+              stage_tolerance=2 * lr * TRAIN_STEPS))
+    if not max(errs.values()) < 1e-3:
+        raise AssertionError(f"distill small reference: max-abs {errs}")
+    if not (abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+            and stage_err <= 2 * lr * TRAIN_STEPS + 1e-6):
+        raise AssertionError(f"distill small reference: stage losses "
+                             f"{losses}, parameters max-abs {stage_err}")
+
+
+def distill_steps(model, run_stage, batch, cond_batch=None):
+    """Run ``run_stage(batches)`` (a 3-step stage of a
+    ``ProgressiveDistiller`` on ``model``) over a feed of ``batch`` (paired
+    with ``cond_batch`` where given) that marks each step's start: (the
+    stage's metrics, ms per step, (forward, backward) item launches per
+    step, peak device memory, the parameters that did not move). The
+    counts are set to 0 just before the stage."""
+    import torch
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    item = resnet.fused_resnet_item
+    before = {k: v.detach().clone() for k, v in model.params.items()}
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), item.launches,
+                      item.backward_launches))
+
+    def feed():
+        while True:
+            mark()
+            yield batch if cond_batch is None else (batch, cond_batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    item.launches = item.backward_launches = 0
+    metrics = run_stage(feed())
+    mark()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    launches = [(b[1] - a[1], b[2] - a[2]) for a, b in zip(marks, marks[1:])]
+    still = [k for k, v in model.params.items() if torch.equal(v, before[k])]
+    return metrics, ms, launches, peak, still
+
+
+def phase_distill_flagship(model, noise):
+    """Progressive distillation of the flagship (bf16, batch 8, 2^18
+    stereo): ``ProgressiveDistiller(model, base_steps=8)`` and one 3-step
+    ``stage`` (8 -> 4). Each step runs the teacher's two no-grad passes and
+    the student's step: exactly 126 forward and 42 backward item launches
+    per step; ms per step beside ``phase_train``'s from this run, the peak;
+    every parameter moved; a profile of the teacher's targets (its two
+    passes). Then a sample at the distilled 4 steps (168
+    launches, finite), and the abort gate: a feed that raises at step 2
+    leaves ``model.params`` bit-equal. Returns (forward, backward launches
+    per step, the sample's launches)."""
+    import torch
+    from audio_diffusion_torch import (ProgressiveDistiller,
+                                       cast_inference_params)
+    from audio_diffusion_torch.distill import make_teacher_targets
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    item = resnet.fused_resnet_item
+    per_pass = 2 * sum(ITEMS)
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device=model.device,
+                        generator=gen).clamp_(-1.0, 1.0)
+    distiller = ProgressiveDistiller(model, base_steps=DISTILL_BASE_STEPS)
+    logs = []
+    metrics, ms, launches, peak, still = distill_steps(
+        model, lambda feed: distiller.stage(feed, TRAIN_STEPS,
+                                            log_fn=logs.append,
+                                            log_every=1), batch)
+    # Where a halving step's extra time goes: the teacher's two passes.
+    teacher = cast_inference_params(
+        {k: v.detach() for k, v in model.params.items()},
+        model.net.compute_dtype)
+    targets = make_teacher_targets(model.net, distiller.steps)
+    phase_profile("distill_targets_profile",
+                  lambda: targets(teacher, model.generator, batch),
+                  batch=TRAIN_BATCH, passes=2)
+    del teacher
+    item.launches = 0
+    t0 = time.perf_counter()
+    out = model.sample(noise, num_steps=distiller.steps)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) * 1e3 / distiller.steps
+    sample_launches = item.launches
+    finite = bool(torch.isfinite(out).all())
+    del out
+    # The abort gate: a feed that fails at the second step.
+    snapshot = {k: v.detach().clone() for k, v in model.params.items()}
+
+    def failing():
+        yield batch
+        raise RuntimeError("the batch source failed at step 2")
+
+    try:
+        ProgressiveDistiller(model, base_steps=DISTILL_BASE_STEPS).stage(
+            failing(), TRAIN_STEPS, log_fn=lambda s: None)
+        aborted = False
+    except RuntimeError as exc:
+        aborted = "step 2" in str(exc)
+    intact = all(torch.equal(v, snapshot[k])
+                 for k, v in model.params.items())
+    del snapshot
+    expected = (per_pass * 3, per_pass)
+    emit(dict(phase="distill_flagship", batch=TRAIN_BATCH, length=LENGTH,
+              dtype="bfloat16", base_steps=DISTILL_BASE_STEPS,
+              student_steps=distiller.steps, stage_steps=TRAIN_STEPS,
+              optimizer="Adam(lr=1e-4)",
+              ms_per_step=sorted(ms)[len(ms) // 2], ms_per_step_runs=ms,
+              train_ms_per_step=TRAIN_MS.get("train"),
+              loss=float(metrics["loss"]), logs=logs,
+              item_launches_per_step=launches,
+              expected_launches_per_step=expected,
+              peak_memory_bytes=peak, peak_gb=peak / 1e9,
+              parameters_not_moved=still, sample_steps=distiller.steps,
+              sample_ms_per_step=sample_ms,
+              sample_item_launches=sample_launches, sample_finite=finite,
+              abort_raised=aborted, abort_params_bit_equal=intact))
+    if any(tuple(n) != expected for n in launches) or len(launches) != \
+            TRAIN_STEPS:
+        raise AssertionError(f"distill_flagship: launches per step "
+                             f"{launches}, expected {expected}")
+    if still or not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"distill_flagship: {len(still)} parameters "
+                             f"did not move ({still[:5]}) or a non-finite "
+                             "loss")
+    if sample_launches != per_pass * distiller.steps or not finite:
+        raise AssertionError(f"distill_flagship: the {distiller.steps}-step "
+                             f"sample made {sample_launches} launches, "
+                             f"finite {finite}")
+    if not (aborted and intact):
+        raise AssertionError(f"distill_flagship: abort raised {aborted}, "
+                             f"params intact {intact}")
+    return launches[0] + (sample_launches,)
+
+
+def phase_guidance_distill_flagship(model, embedding):
+    """Guidance distillation of the text-conditional flagship (bf16, batch
+    8): a 3-step ``guidance_stage`` at the guided sample's scale, with
+    ``(x, {"embedding": ...})`` batches. Each step runs the teacher's
+    guided pass (the items at batch 16) and the student's step: exactly 84
+    forward (42 at batch 16, 42 at batch 8) and 42 backward launches per
+    step; every parameter moved but the fixed embedding, which only the
+    teacher's guided pass reads. Returns (forward, backward) launches per
+    step."""
+    import torch
+    from audio_diffusion_torch import ProgressiveDistiller
+
+    per_pass = 2 * sum(ITEMS)
+    gen = torch.Generator(device=model.device).manual_seed(6)
+    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device=model.device,
+                        generator=gen).clamp_(-1.0, 1.0)
+    distiller = ProgressiveDistiller(model, base_steps=DISTILL_BASE_STEPS)
+    logs = []
+    metrics, ms, launches, peak, still = distill_steps(
+        model, lambda feed: distiller.guidance_stage(
+            feed, GUIDANCE, TRAIN_STEPS, log_fn=logs.append, log_every=1),
+        batch, {"embedding": embedding})
+    expected = (2 * per_pass, per_pass)
+    emit(dict(phase="guidance_distill_flagship", batch=TRAIN_BATCH,
+              teacher_item_batch=2 * TRAIN_BATCH, length=LENGTH,
+              dtype="bfloat16", guidance_scale=GUIDANCE,
+              stage_steps=TRAIN_STEPS, optimizer="Adam(lr=1e-4)",
+              ms_per_step=sorted(ms)[len(ms) // 2], ms_per_step_runs=ms,
+              train_text_ms_per_step=TRAIN_MS.get("train_text"),
+              loss=float(metrics["loss"]), logs=logs,
+              item_launches_per_step=launches,
+              expected_launches_per_step=expected,
+              peak_memory_bytes=peak, peak_gb=peak / 1e9,
+              parameters_not_moved=still))
+    if any(tuple(n) != expected for n in launches) or len(launches) != \
+            TRAIN_STEPS:
+        raise AssertionError(f"guidance_distill_flagship: launches per step "
+                             f"{launches}, expected {expected}")
+    if still != [FIXED_EMBEDDING] or not math.isfinite(
+            float(metrics["loss"])):
+        raise AssertionError(f"guidance_distill_flagship: parameters that "
+                             f"did not move: {still[:5]}, or a non-finite "
+                             "loss")
+    return launches[0]
+
+
+def phase_embed_flagship(torch):
+    """``CorpusEmbedder`` at its defaults (48 kHz, crop 48,000, 64 mels,
+    widths (96, 128, 192), batch 32) on 16 stereo files of 4 s synthesized
+    from a seed, the corpus on the card: ms per ``train`` step over 20
+    steps (after a 2-step warm-up), the peak; then ``embed`` of 8 files' 2 s
+    on the card against the CPU with the same parameters: max-abs ≤ 1e-4
+    (float32, TF32 off), unit norm."""
+    import numpy as np
+    from audio_diffusion_torch import CorpusEmbedder
+
+    rs = np.random.default_rng(23)
+    rate = 48000
+    frames = EMBED_SECONDS * rate
+    t = np.arange(frames) / rate
+    corpus = np.stack([
+        0.3 * np.sin(2 * np.pi * 80.0 * (i + 1) * t) * np.array([[1.0],
+                                                                  [0.8]])
+        + 0.05 * rs.standard_normal((2, frames))
+        for i in range(EMBED_FILES)]).astype(np.float32)
+    emb = CorpusEmbedder()
+    emb.train(corpus, steps=2)  # warm-up: cuDNN's plans, AdamW's state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = emb.train(corpus,
+                       generator=torch.Generator(emb.device).manual_seed(1),
+                       steps=EMBED_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / EMBED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    probe = corpus[:8, :, :2 * rate]
+    got = emb.embed(params, probe)
+    t0 = time.perf_counter()
+    want = CorpusEmbedder(device="cpu").embed(
+        {k: v.cpu() for k, v in params.items()}, probe)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1.0).max())
+    emit(dict(phase="embed_flagship", files=EMBED_FILES,
+              seconds_per_file=EMBED_SECONDS, sample_rate=rate,
+              crop=emb.crop, widths=list(emb.widths), features=emb.features,
+              batch=32, steps=EMBED_STEPS, ms_per_step=step_ms,
+              peak_memory_bytes=peak, peak_gb=peak / 1e9,
+              parameters=sum(v.numel() for v in params.values()),
+              embed_shape=list(got.shape), max_abs_err=err,
+              unit_norm_err=norm_err, tolerance=1e-4,
+              cpu_embed_seconds=cpu_s))
+    if not (got.shape == (len(probe), emb.features) and err <= 1e-4
+            and norm_err <= 1e-5):
+        raise AssertionError(f"embed_flagship: shape {got.shape}, max-abs "
+                             f"{err}, unit norm error {norm_err}")
+
+
+def phase_cli_distill_eval(root: Path):
+    """``distill``, ``sample`` and ``eval`` as a user runs them, on the run
+    that ``phase_cli_train_sample`` trained: ``distill --base-steps 4
+    --target-steps 2 --stage-steps 2``, then two 2-step samples from
+    ``run/model_distilled2`` (finite stereo of 2^18 frames), then ``eval``
+    of those against the corpus, whose JSON must hold finite values. Each
+    must exit 0."""
+    import numpy as np
+    from audio_diffusion_torch.data import wav_probe, wav_read
+
+    run, wavs, smp = root / "run", root / "wavs", root / "samples_distilled"
+    repo = Path(__file__).resolve().parent
+    commands = {
+        "distill": ["distill", "--model", str(run / "model"), "--data",
+                    str(wavs), "--base-steps", "4", "--target-steps", "2",
+                    "--stage-steps", "2", "--crop", str(LENGTH),
+                    "--log-every", "1"],
+        "sample": ["sample", "--model", str(run / "model_distilled2"),
+                   "--num", "2", "--steps", "2", "--length", str(LENGTH),
+                   "--out", str(smp)],
+        "eval": ["eval", "--ref", str(wavs), "--samples", str(smp)],
+    }
+    results = {}
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audio_diffusion_torch", *argv],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        results[name] = dict(rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             stdout=proc.stdout.strip().splitlines()[-6:],
+                             stderr=proc.stderr.strip().splitlines()[-6:])
+        if proc.returncode != 0:
+            emit(dict(phase="cli_distill_eval", **results))
+            raise AssertionError(f"cli_distill_eval: {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(results["eval"]["stdout"][-1])
+    wav_ok = all(wav_probe(smp / f"sample_{i}.wav")[:3] == (2, 48000, LENGTH)
+                 and np.isfinite(wav_read(smp / f"sample_{i}.wav")).all()
+                 for i in range(2))
+    finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                 for v in summary.values())
+    emit(dict(phase="cli_distill_eval", **results, eval_summary=summary,
+              wavs_ok=wav_ok, eval_finite=finite))
+    if not (wav_ok and finite and summary["num_samples"] == 2):
+        raise AssertionError(f"cli_distill_eval: wavs ok {wav_ok}, eval "
+                             f"{summary}")
+
+
 def main() -> int:
     import torch
 
@@ -2719,6 +3169,7 @@ def main() -> int:
     phase_dsp_small_reference()
     phase_task_small_reference()
     phase_quant_small_reference()
+    phase_distill_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
@@ -2755,7 +3206,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     art_root = Path(tempfile.mkdtemp(prefix="chip_smoke_art_"))
     try:
-        artifact_launches = phase_export_flagship(model, noise, art_root)
+        artifact_launches, artifact_reuse_launches = phase_export_flagship(
+            model, noise, art_root)
     finally:
         shutil.rmtree(art_root, ignore_errors=True)
     gc.collect()
@@ -2768,8 +3220,12 @@ def main() -> int:
     long_launches = phase_longform(model)
     del out
 
-    # The training main path: counts set to 0 inside, just before its steps.
+    # The training main path: counts set to 0 inside, just before its steps;
+    # then a halving stage of progressive distillation, with its own.
     train_launches = phase_train(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    distill_launches = phase_distill_flagship(model, noise)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2785,6 +3241,10 @@ def main() -> int:
     text_train_launches = phase_train(model, "train_text",
                                       embedding=embedding,
                                       embedding_mask_proba=0.1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guidance_distill_launches = phase_guidance_distill_flagship(model,
+                                                                embedding)
     t5_launches = phase_t5_text(model, noise)
     del model, embedding
     gc.collect()
@@ -2815,6 +3275,9 @@ def main() -> int:
     enc_launches, dec_launches, ae_train_launches = phase_autoencoder(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_embed_flagship(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # The Trainer and its data pipeline on the flagship (checkpoint and
     # resume, the corpus on the card and on the host), activation
@@ -2828,6 +3291,7 @@ def main() -> int:
         remat_launches = phase_remat_flagship(torch)
         phase_cli_train_sample(root)
         phase_cli_serve(root)
+        phase_cli_distill_eval(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2898,6 +3362,11 @@ def main() -> int:
                 **{f"batch16_{k}": batch16_fwd[k] for k in per_pass_keys},
                 serve_launches=serve_launches, quant_launches=quant_launches,
                 artifact_launches=artifact_launches,
+                artifact_reuse_launches=artifact_reuse_launches,
+                distill_launches_per_step=distill_launches[0],
+                distilled_sample_launches=distill_launches[2],
+                guidance_distill_launches_per_step=(
+                    guidance_distill_launches[0]),
                 **{f"batch8_{k}": batch8_fwd[k]
                    for k in per_pass_keys + ("host_ms", "bound_by")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
@@ -2905,6 +3374,9 @@ def main() -> int:
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,
                 text_train_launches=text_train_launches[1],
                 ar_train_launches=ar_train_launches[1],
+                distill_launches_per_step=distill_launches[1],
+                guidance_distill_launches_per_step=(
+                    guidance_distill_launches[1]),
                 conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
                 train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
                                    for r in bwd_train_rows),

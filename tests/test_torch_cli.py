@@ -3,7 +3,9 @@
 WAVs synthesized from a numpy seed, then ``train`` again, which resumes
 from the run's checkpoint; ``export``, then ``serve --artifact`` and
 ``serve`` each in a subprocess answering one request and draining on
-SIGTERM; the commands that are not ported raise.
+SIGTERM; ``distill`` on a saved run, then ``sample`` at the distilled
+steps, with its guards and ``--out``; ``eval``'s JSON against the JAX
+command's on the same WAVs.
 
 No tolerances: the run directory's layout, the recorded config and the
 outputs' shapes are checked exactly, the audio for finite values.
@@ -107,12 +109,6 @@ def test_train_host_placement_and_text_encoder(tmp_path, corpus, capsys):
                   "--caption-dir", str(emb), "--device", "cpu"])
 
 
-@pytest.mark.parametrize("cmd", ["distill", "eval"])
-def test_unported_commands_raise(cmd):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli.main([cmd, "--model", "run/model"])
-
-
 @pytest.fixture
 def saved_run(tmp_path):
     """A run directory as `train` leaves it: config.json and model."""
@@ -188,3 +184,98 @@ def test_export_then_serve_artifact_and_serve(saved_run, tmp_path):
     assert stats["padded_slots"] == 1
     np.testing.assert_array_equal(
         np.frombuffer(body[44:], np.int16), want.T.reshape(-1).numpy())
+
+
+def _distill(run, wavs, *extra):
+    cli.main(["distill", "--model", str(run / "model"), "--data", str(wavs),
+              "--base-steps", "4", "--target-steps", "2", "--stage-steps",
+              "2", "--batch", "2", "--crop", "256", "--log-every", "1",
+              "--device", "cpu", *extra])
+
+
+def test_distill_then_sample(saved_run, corpus, tmp_path, capsys):
+    from audio_diffusion_torch import load_params
+
+    wavs, _ = corpus
+    before = load_params(saved_run / "model", device="cpu")
+    _distill(saved_run, wavs)
+    out = capsys.readouterr().out
+    assert "distill 4->2 step 1/2: loss=" in out
+    assert "distill 4->2 step 2/2: loss=" in out
+    assert "stage done: model now samples at 2 steps" in out
+    after = load_params(saved_run / "model_distilled2", device="cpu")
+    assert sorted(after) == sorted(before)
+    assert all(not torch.equal(after[k], v) for k, v in before.items()
+               if k != "inner.items_down_0.ResnetModItem_0.conv1_bias")
+    cli.main(["sample", "--model", str(saved_run / "model_distilled2"),
+              "--out", str(tmp_path / "smp"), "--steps", "2", "--length",
+              "256", "--device", "cpu"])
+    path = tmp_path / "smp" / "sample_0.wav"
+    assert wav_probe(path) == (2, 16000, 256)
+    assert np.isfinite(wav_read(path)).all()
+
+
+@pytest.mark.parametrize("case", ["task", "no_cfg", "no_embedding_dir",
+                                  "unreachable"])
+def test_distill_guards(saved_run, corpus, case):
+    wavs, _ = corpus
+    extra, match = {
+        "task": ([], "distill drives unconditional models"),
+        "no_cfg": (["--guidance-scale", "3"], "requires a CFG model"),
+        "no_embedding_dir": (["--guidance-scale", "3"],
+                             "needs --embedding-dir"),
+        "unreachable": (["--target-steps", "3"], "not reachable"),
+    }[case]
+    cfg_path = saved_run / "config.json"
+    cfg = json.loads(cfg_path.read_text())
+    if case == "task":
+        cfg["_task"] = "upsampler"
+    if case == "no_embedding_dir":
+        cfg["use_embedding_cfg"] = True
+    cfg_path.write_text(json.dumps(cfg))
+    argv = ["distill", "--model", str(saved_run / "model"), "--data",
+            str(wavs), "--base-steps", "4", "--device", "cpu"]
+    if case != "unreachable":
+        argv += ["--target-steps", "2"]
+    with pytest.raises(SystemExit, match=match):
+        cli.main(argv + extra)
+
+
+def test_distill_out_copies_config(saved_run, corpus, tmp_path, capsys):
+    wavs, _ = corpus
+    dest = tmp_path / "elsewhere" / "fast"
+    _distill(saved_run, wavs, "--out", str(dest), "--data-placement",
+             "host")
+    assert "data host" in capsys.readouterr().out
+    assert dest.is_file() and not (saved_run / "model_distilled2").exists()
+    assert (dest.parent / "config.json").read_text() == (
+        saved_run / "config.json").read_text()
+
+
+def test_eval_json_matches_jax(tmp_path, capsys):
+    from audio_diffusion_tpu.cli import main as jax_main
+
+    rs = np.random.default_rng(2)
+    ref, gen = tmp_path / "ref", tmp_path / "gen"
+    ref.mkdir()
+    gen.mkdir()
+    t = np.arange(4000) / 16000
+    for i in range(3):
+        tone = 0.5 * np.sin(2 * np.pi * 220 * (i + 1) * t)
+        wav_write(ref / f"r{i}.wav", np.stack([tone, tone * 0.5]), 16000)
+    wav_write(gen / "good.wav", np.stack([0.5 * np.sin(
+        2 * np.pi * 440 * t)] * 2), 16000)
+    wav_write(gen / "noise.wav", rs.uniform(-.3, .3, (2, 4100)), 16000)
+    argv = ["eval", "--ref", str(ref), "--samples", str(gen)]
+    summaries = []
+    for main in (cli.main, jax_main):
+        capsys.readouterr()
+        main(argv)
+        lines = capsys.readouterr().out.strip().splitlines()
+        summaries.append((lines[:-1], json.loads(lines[-1])))
+    (port_lines, got), (jax_lines, want) = summaries
+    assert got == want and port_lines == jax_lines
+    assert got["num_samples"] == 2 and got["crop"] == 4000
+    assert all(np.isfinite(v) for v in got.values())
+    with pytest.raises(SystemExit, match="no .wav"):
+        cli.main(["eval", "--ref", str(tmp_path), "--samples", str(gen)])

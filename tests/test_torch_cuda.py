@@ -657,3 +657,86 @@ def test_export_on_card_records_the_operator(cuda_device, tmp_path):
     noise = torch.randn(1, 2, 256, device=cuda_device)
     assert torch.equal(sampler(model.params, noise),
                        model.sample(noise, num_steps=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided", [False, True])
+def test_distill_stage_step_launch_counts(cuda_device, guided):
+    """One step of a halving stage runs two no-grad teacher passes and the
+    student's forward and backward: 3 + 1 item passes each way (a guided
+    step: one teacher pass at twice the batch, then the student's). Every
+    parameter moves but the fixed embedding, which only the teacher's
+    guided pass reads."""
+    from audio_diffusion_torch import ProgressiveDistiller
+
+    cond = (dict(cross_attentions=[0, 1], attention_heads=2,
+                 attention_features=8, embedding_features=16,
+                 use_embedding_cfg=True, embedding_max_length=4)
+            if guided else {})
+    model = DiffusionModel(net_t=UNetV0, in_channels=2, channels=[8, 32],
+                           factors=[1, 2], items=[1, 1],
+                           modulation_features=32, **cond)
+    with torch.no_grad():  # the zero-initialized gates carry signal too
+        for p in model.params.values():
+            if not p.any():
+                p.normal_(0.0, 0.05, generator=model.generator)
+    before = {k: v.detach().clone() for k, v in model.params.items()}
+    x = torch.randn(2, 2, 256, device=cuda_device)
+    distiller = ProgressiveDistiller(model, base_steps=4)
+    fwd, bwd = fused_resnet_item.launches, fused_resnet_item.backward_launches
+    if guided:
+        emb = torch.randn(2, 4, 16, device=cuda_device)
+        m = distiller.guidance_stage(iter([(x, {"embedding": emb})]), 3.0, 1,
+                                     log_fn=lambda s: None)
+    else:
+        m = distiller.stage(iter([x]), 1, log_fn=lambda s: None)
+    per_pass = 2 * (1 + 1)
+    assert (fused_resnet_item.launches - fwd,
+            fused_resnet_item.backward_launches - bwd) == (
+        (2 if guided else 3) * per_pass, per_pass)
+    assert torch.isfinite(m["loss"])
+    still = [k for k, v in model.params.items() if torch.equal(v, before[k])]
+    assert still == (["inner.fixed_embedding"] if guided else [])
+
+
+@pytest.mark.cuda
+def test_embedder_on_card_matches_cpu(cuda_device):
+    """The CorpusEmbedder's embed with the same parameters on the card and
+    on the CPU (float32, TF32 off): max-abs ≤ 1e-4 and unit norm."""
+    from audio_diffusion_torch import CorpusEmbedder
+
+    kw = dict(features=8, sample_rate=8000, crop=1088, n_mels=24, n_fft=256,
+              hop=64, widths=(24, 32))
+    corpus = np.random.default_rng(1).standard_normal((4, 2, 4096)).astype(
+        np.float32) * 0.3
+    cpu = CorpusEmbedder(device="cpu", **kw)
+    gpu = CorpusEmbedder(device=cuda_device, **kw)
+    params = cpu.train(corpus, steps=3, batch=4)
+    trained = gpu.train(corpus, steps=3, batch=4)
+    assert all(v.is_cuda for v in trained.values())
+    want = cpu.embed(params, corpus)
+    got = gpu.embed({k: v.to(cuda_device) for k, v in params.items()},
+                    corpus)
+    assert np.abs(got - want).max() <= 1e-4
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_export_encoder_reuse_on_card(cuda_device, tmp_path):
+    """encoder_reuse=2 on the card: the artifact gives model.sample's bits
+    with the same launches (a full pass of 4 items, then a decoder pass
+    of 2, per chunk)."""
+    from audio_diffusion_torch import export_sampler, load_sampler
+
+    model = DiffusionModel(net_t=UNetV0, in_channels=2, channels=[8, 32],
+                           factors=[1, 2], items=[1, 1],
+                           modulation_features=32, dtype=torch.bfloat16)
+    export_sampler(model, tmp_path, length=256, num_steps=4,
+                   encoder_reuse=2)
+    sampler, manifest = load_sampler(tmp_path)
+    assert manifest["encoder_reuse"] == 2
+    noise = torch.randn(1, 2, 256, device=cuda_device)
+    want = model.sample(noise, num_steps=4, encoder_reuse=2)
+    before = fused_resnet_item.launches
+    assert torch.equal(sampler(model.params, noise), want)
+    assert fused_resnet_item.launches - before == 2 * (4 + 2)

@@ -1,8 +1,8 @@
 """The port's exported sampler (export.py) on the CPU: ``export_sampler``
 traces one sampler step with ``torch.export``, ``load_sampler`` runs the
 loop over the manifest's table; the output equals ``model.sample``'s bit
-for bit (VSampler and DPMSampler, an ``embedding=`` input, int8
-parameters), the parameters are an input, the guards fail loudly, and an
+for bit (VSampler and DPMSampler, with and without encoder reuse, an
+``embedding=`` input, int8 parameters), the parameters are an input, the guards fail loudly, and an
 ``ArtifactSampler`` serves behind a ``GenerationService``. No tolerance:
 every comparison is bit for bit."""
 import json
@@ -14,12 +14,14 @@ import torch
 from audio_diffusion_torch import (ArtifactSampler, DiffusionModel,
                                    DPMSampler, GenerationService, SDESampler,
                                    UNetV0, export_sampler, load_params,
-                                   load_sampler, quantize_params)
+                                   VSampler, load_sampler, quantize_params)
 
 torch.set_num_threads(2)
 
 TINY = dict(in_channels=1, channels=[8], factors=[1], items=[1],
             modulation_features=32)
+TWO_LEVEL = dict(in_channels=1, channels=[8, 16], factors=[1, 2],
+                 items=[1, 1], modulation_features=32)
 
 
 def tiny(**kw):
@@ -97,9 +99,6 @@ def test_export_guards(artifact, tmp_path):
     with pytest.raises(ValueError, match="step form"):
         export_sampler(tiny(sampler_t=SDESampler), tmp_path / "sde",
                        length=256)
-    with pytest.raises(ValueError, match="encoder_reuse"):
-        export_sampler(model, tmp_path / "reuse", length=256,
-                       encoder_reuse=2)
     art = ArtifactSampler(path, model.params, device="cpu")
     assert (art.batch_size, art.in_channels, art.length) == (2, 1, 256)
     with pytest.raises(ValueError, match="num_steps"):
@@ -108,6 +107,32 @@ def test_export_guards(artifact, tmp_path):
         art.sample(noise((2, 1, 256)), embedding_scale=5.0)
     with pytest.raises(ValueError, match="expects noise"):
         art.sample(noise((2, 1, 128)))
+
+
+@pytest.mark.parametrize("sampler_t", [VSampler, DPMSampler])
+def test_export_encoder_reuse_roundtrip(sampler_t, tmp_path):
+    """encoder_reuse=2 on the 2-level net: the full step (which returns the
+    encoder state) and the reuse step are both exported, and their chunks
+    replay ``model.sample(..., encoder_reuse=2)`` bit for bit."""
+    model = DiffusionModel(net_t=UNetV0, device="cpu", sampler_t=sampler_t,
+                           **TWO_LEVEL)
+    manifest = export_sampler(model, tmp_path, length=256, num_steps=4,
+                              encoder_reuse=2)
+    assert manifest["encoder_reuse"] == 2 and manifest["scalar_cond"] == {}
+    assert (tmp_path / "step.pt2").exists() and (tmp_path
+                                                 / "reuse.pt2").exists()
+    x = noise((1, 1, 256), 9)
+    want = model.sample(x, num_steps=4, encoder_reuse=2)
+    assert not torch.equal(want, model.sample(x, num_steps=4))
+    art = ArtifactSampler(tmp_path, model.params, device="cpu")
+    assert art.encoder_reuse == 2
+    assert torch.equal(art.sample(x), want)
+    assert torch.equal(art.sample(x, encoder_reuse=2), want)
+    with pytest.raises(ValueError, match="encoder_reuse=2"):
+        art.sample(x, encoder_reuse=1)
+    with pytest.raises(ValueError, match="divisible"):
+        export_sampler(model, tmp_path / "odd", length=256, num_steps=3,
+                       encoder_reuse=2)
 
 
 def test_export_conditional_roundtrip(tmp_path):

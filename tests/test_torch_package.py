@@ -25,7 +25,9 @@ def test_import_loads_no_jax():
             "audio_diffusion_torch.data, audio_diffusion_torch.train, "
             "audio_diffusion_torch.cli, audio_diffusion_torch.__main__, "
             "audio_diffusion_torch.serve, audio_diffusion_torch.server, "
-            "audio_diffusion_torch.export, audio_diffusion_torch.ops.quant;"
+            "audio_diffusion_torch.export, audio_diffusion_torch.ops.quant, "
+            "audio_diffusion_torch.distill, audio_diffusion_torch.eval, "
+            "audio_diffusion_torch.embed;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -78,7 +80,8 @@ def test_task_model_extras_follow_the_model_device():
 SERVING_NAMES = ["GenerationService", "make_server", "wav_bytes", "QTensor",
                  "quantize_params", "dequantize_params", "unpack_int4_leaves",
                  "export_sampler", "load_sampler", "load_params",
-                 "ArtifactSampler"]
+                 "ArtifactSampler", "ProgressiveDistiller", "CorpusEmbedder",
+                 "frechet_embedding_distance"]
 
 
 @pytest.mark.parametrize("name", SERVING_NAMES)
@@ -96,7 +99,8 @@ def test_serving_modules_import_no_jax_in_source():
     import re
 
     root = pathlib.Path(__file__).resolve().parents[1] / "audio_diffusion_torch"
-    for rel in ("serve.py", "server.py", "export.py", "ops/quant.py"):
+    for rel in ("serve.py", "server.py", "export.py", "ops/quant.py",
+                "distill.py", "eval.py", "embed.py"):
         src = (root / rel).read_text()
         bad = re.findall(r"^\s*(?:from|import)\s+(jax\w*|flax|"
                          r"audio_diffusion_tpu)\b", src, re.MULTILINE)

@@ -240,7 +240,7 @@ def test_ema_after_one_step():
 def test_multi_gpu_options_raise():
     model = fresh_model()
     for kwargs in (dict(mesh=object()), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match=r"item 4\)"):
             make_train_step(model.loss, torch.optim.Adam, **kwargs)
 
 
