@@ -19,9 +19,16 @@ model's ``params``: the net's names as they are, the extras' as
 ``"encoder/<name>"`` and ``"to_flat/<name>"``.
 
 Layouts: a flax Dense kernel [in, out] becomes an ``nn.Linear`` weight
-[out, in]; LayerNorm keeps ``scale``/``bias``; conv3 kernels [3, Cin, Cout],
-Downsample [d·Cin, Cout], Upsample [Cin, d·Cout] and SkipCat [2C, C] kernels
-and ``fixed_embedding`` keep their layout. Port names are the JAX paths
+[out, in]; LayerNorm and GroupNorm keep ``scale``/``bias``; conv3 kernels
+[3, Cin, Cout], the width-changing item's ``shortcut_kernel`` [Cin, C],
+Downsample [d·Cin, Cout], Upsample [Cin, d·Cout] and SkipCat [2C, C]
+kernels, the 2-D/3-D nets' conv kernels [3, 3(, 3), Cin, Cout]
+(``...Conv_0.kernel``) and ``fixed_embedding`` keep their layout. The
+2-D/3-D nets (``XUNet2d``/``XUNet3d``, told apart by their ``proj_out``)
+keep flax's per-class names inside an item stack (``ResnetItem2d_k``,
+``ModulationItem2d_k``, the context ``Dense_k``, ``AttentionItem_k``,
+``CrossAttentionItem_k``); their patch layers, skips and context
+projections are Dense layers. Port names are the JAX paths
 joined by dots, with a Dense's ``kernel`` named ``weight``. Both directions
 are strict: a leftover or a missing leaf raises.
 
@@ -75,6 +82,9 @@ _RESNET_LEAVES = ("gn1_scale", "gn1_bias", "conv1_kernel", "conv1_bias",
                   "gn2_scale", "gn2_bias", "conv2_kernel", "conv2_bias")
 _ITEM = re.compile(r"(ResnetMod|InjectChannels|Attention|CrossAttention)"
                    r"Item_\d+")
+# Flax's per-class names inside ItemStack2d/3d.
+_ITEM_ND = re.compile(r"(ResnetItem|ModulationItem|Dense|AttentionItem|"
+                      r"CrossAttentionItem)(?:[23]d)?_\d+")
 
 
 class _Walk:
@@ -116,6 +126,9 @@ class _Walk:
     def resnet_item(self, node: dict, prefix: str) -> None:
         for key in _RESNET_LEAVES:
             self.leaf(node, key, prefix)
+        if "shortcut_kernel" in node:  # channel_change="first_item"
+            self.leaf(node, "shortcut_kernel", prefix)
+            self.leaf(node, "shortcut_bias", prefix)
         if "mod_dense" in node:
             self.leaf(node, "mod_gn_scale", prefix)
             self.leaf(node, "mod_gn_bias", prefix)
@@ -152,7 +165,56 @@ class _Walk:
             self.child(node, item, prefix, fn)
         self.done(node, prefix)
 
+    def conv(self, node: dict, prefix: str) -> None:
+        """The JAX package's ``Conv2d``/``Conv3d``: flax ``nn.Conv`` as
+        ``Conv_0``."""
+        conv = self.take(node, "Conv_0", prefix)
+        for key in ("kernel", "bias"):
+            self.leaf(conv, key, f"{prefix}Conv_0.")
+        self.done(conv, f"{prefix}Conv_0.")
+        self.done(node, prefix)
+
+    def item_stack_nd(self, node: dict, prefix: str) -> None:
+        for item in [k for k in node if _ITEM_ND.fullmatch(k)]:
+            kind = _ITEM_ND.fullmatch(item).group(1)
+            fn = {"ResnetItem": self.resnet_item_nd,
+                  "ModulationItem": self.modulation_item_nd,
+                  "Dense": self.dense}.get(kind, self.attention_item)
+            self.child(node, item, prefix, fn)
+        self.done(node, prefix)
+
+    def resnet_item_nd(self, node: dict, prefix: str) -> None:
+        conv = "Conv3d" if "Conv3d_0" in node else "Conv2d"
+        for key in ("GroupNorm_0", "GroupNorm_1"):
+            self.child(node, key, prefix, self.layer_norm)
+        for key in (f"{conv}_0", f"{conv}_1"):
+            self.child(node, key, prefix, self.conv)
+        self.done(node, prefix)
+
+    def modulation_item_nd(self, node: dict, prefix: str) -> None:
+        self.child(node, "GroupNorm_0", prefix, self.layer_norm)
+        self.child(node, "Dense_0", prefix, self.dense)
+        self.done(node, prefix)
+
+    def xunet_nd(self, node: dict, prefix: str) -> None:
+        """``XUNet2d``/``XUNet3d``: Dense-based patches and skips, flax
+        ``GroupNorm_0`` and the ``proj_out`` conv."""
+        self.child(node, "GroupNorm_0", prefix, self.layer_norm)
+        self.child(node, "proj_out", prefix, self.conv)
+        for key in [k for k in node if re.fullmatch(r"(down|up)_\d+", k)]:
+            sub = node.pop(key)
+            self.child(sub, "Dense_0", f"{prefix}{key}.", self.dense)
+            self.done(sub, f"{prefix}{key}.")
+        for key in [k for k in node if re.fullmatch(r"skip_\d+", k)]:
+            self.child(node, key, prefix, self.dense)
+        for key in [k for k in node if re.fullmatch(r"items_(down|up)_\d+", k)]:
+            self.child(node, key, prefix, self.item_stack_nd)
+        self.done(node, prefix)
+
     def xunet(self, node: dict, prefix: str) -> None:
+        if "proj_out" in node:
+            self.xunet_nd(node, prefix)
+            return
         for key in ("out_gn_scale", "out_gn_bias", "out_kernel", "out_bias"):
             self.leaf(node, key, prefix)
         for key in [k for k in node if re.fullmatch(r"(down|up)_\d+", k)]:

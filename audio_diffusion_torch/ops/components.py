@@ -1,7 +1,7 @@
 """Network factory ``UNetV0`` (counterpart of
-audio_diffusion_tpu/ops/components.py), dim=1, with the same flat kwargs,
-and the net plugins ``LTPlugin`` and ``AppendChannelsPlugin``, which wrap
-a factory into another with the same call."""
+audio_diffusion_tpu/ops/components.py), dim 1, 2 or 3, with the same flat
+kwargs, and the net plugins ``LTPlugin`` and ``AppendChannelsPlugin``,
+which wrap a factory into another with the same call."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence
@@ -14,6 +14,8 @@ from .conv import Conv1d, ConvTranspose1d
 from .net import Net
 from .unet import (AppendChannelsWrapper, ClassifierFreeGuidanceWrapper,
                    TimeConditioningWrapper, XUNet)
+from .unet2d import XUNet2d
+from .unet3d import XUNet3d
 
 __all__ = ["UNetV0", "XUNet", "LTPlugin", "AppendChannelsPlugin"]
 
@@ -57,22 +59,34 @@ def UNetV0(
     attached as ``net.text_encoder``, and
     the model layer turns ``text=`` into ``embedding=`` with it.
 
-    ``lane_fold`` and ``use_pallas`` are the JAX package's TPU switches: they
-    are accepted and ignored (the port never folds lanes, and every resnet
-    item runs the fused kernels, forward and backward, on a CUDA tensor). Not
-    ported yet, and raising ``NotImplementedError``: dim 2/3, the pretrained
-    T5 encoder (``use_text_conditioning`` without a ``text_encoder``: its
-    ``t5-base`` weights are not in the repository) and
-    ``channel_change="first_item"``.
+    ``dim`` 1 builds the 1-D ``XUNet`` ([B, C, T]), 2 ``XUNet2d`` ([B, C,
+    H, W]) and 3 ``XUNet3d`` ([B, C, D, H, W]). ``lane_fold`` and
+    ``use_pallas`` are the JAX package's TPU switches: they are accepted and
+    ignored (the port never folds lanes, and every 1-D resnet item of
+    constant width runs the fused kernels, forward and backward, on a CUDA
+    tensor), except where the JAX factory refuses them: ``use_pallas=True``
+    at dim 2/3, and ``lane_fold=True`` with ``channel_change="first_item"``
+    raise ``ValueError``. ``channel_change`` (``"resample"`` or
+    ``"first_item"``) is a dim-1 switch: dim 2 refuses ``"first_item"``,
+    and dim 3 ignores it, as the JAX factory does. Not ported, and raising
+    ``NotImplementedError``: the pretrained T5 encoder
+    (``use_text_conditioning`` without a ``text_encoder``: its ``t5-base``
+    weights are not in the repository).
 
     ``use_remat`` checkpoints each level's item stack (its activations are
     recomputed in the backward); ``remat_policy`` is None (recompute
     everything) or ``"dots_with_no_batch_dims_saveable"`` (keep the Dense
     products); another name raises ``ValueError``.
     """
-    if dim != 1:
-        raise NotImplementedError(
-            f"UNetV0 dim={dim} is not ported yet (ROADMAP: dim 2/3)")
+    if dim not in (1, 2, 3):
+        raise ValueError(f"UNetV0: dim must be 1, 2 or 3, got {dim}")
+    if dim == 2 and channel_change != "resample":
+        raise ValueError("channel_change is a dim=1 parity-mode switch")
+    if dim > 1 and use_pallas:
+        raise ValueError("use_pallas is implemented for dim=1 only")
+    if dim == 1 and channel_change == "first_item" and lane_fold:
+        raise ValueError("channel_change='first_item' is a parity-mode "
+                         "geometry; build with lane_fold=False")
     num_layers = len(channels)
     attentions = default(attentions, [0] * num_layers)
     cross_attentions = default(cross_attentions, [0] * num_layers)
@@ -90,10 +104,6 @@ def UNetV0(
             "the repository (ROADMAP: the pretrained T5 weights); pass a "
             "text_encoder such as ops.text.RandomT5TextEncoder or "
             "ops.text.StubTextEncoder, or condition with embedding=")
-    if channel_change != "resample":
-        raise NotImplementedError(
-            "UNetV0 channel_change is not ported yet (ROADMAP: parity "
-            "geometry)")
     if use_time_conditioning and not use_modulation:
         raise ValueError("use_time_conditioning requires use_modulation=True")
     if use_embedding_cfg and (embedding_max_length is None
@@ -104,7 +114,7 @@ def UNetV0(
     device = resolve_device(device)
     out_channels = default(out_channels, in_channels)
     common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-    module = XUNet(
+    unet_kwargs = dict(
         in_channels=in_channels, out_channels=out_channels,
         channels=tuple(channels), factors=tuple(factors), items=tuple(items),
         attentions=tuple(attentions),
@@ -116,6 +126,11 @@ def UNetV0(
         resnet_groups=resnet_groups, use_modulation=use_modulation,
         modulation_features=modulation_features, use_remat=use_remat,
         remat_policy=remat_policy, **common)
+    if dim == 1:
+        module: nn.Module = XUNet(channel_change=channel_change,
+                                  **unet_kwargs)
+    else:
+        module = (XUNet2d if dim == 2 else XUNet3d)(**unet_kwargs)
     if use_embedding_cfg:
         module = ClassifierFreeGuidanceWrapper(
             module, embedding_max_length, embedding_features, **common)

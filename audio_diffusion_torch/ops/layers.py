@@ -98,7 +98,7 @@ class LayerNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm`` on channels-last [B, L, C]: f32 one-pass
+    """flax ``nn.GroupNorm`` on channels-last [B, ..., C]: f32 one-pass
     moments E[x²] − E[x]² per (batch, group) (clamped at 0), eps 1e-6,
     y = (x − mean)·(rsqrt(var + eps)·scale) + bias in f32, returned in
     ``dtype`` (or the promoted input/param type). torch's GroupNorm differs
@@ -116,10 +116,10 @@ class GroupNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: Tensor) -> Tensor:
-        b, length, c = x.shape
+        b, c = x.shape[0], x.shape[-1]
         g = self.num_groups
-        xf = x.float()
-        xg = xf.reshape(b, length, g, c // g)
+        xf = x.float().reshape(b, -1, c)
+        xg = xf.reshape(b, -1, g, c // g)
         mean = xg.mean(dim=(1, 3))
         var = torch.clamp(xg.square().mean(dim=(1, 3)) - mean * mean, min=0.0)
         mean = mean.repeat_interleave(c // g, 1)[:, None]
@@ -127,4 +127,4 @@ class GroupNorm(nn.Module):
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) \
             + self.bias.float()
         out_dtype = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)
-        return y.to(out_dtype)
+        return y.to(out_dtype).reshape(x.shape)

@@ -6,11 +6,12 @@ package's TPU layout devices are not ported: no lane folding, no lane→group
 matrices, no VMEM guard. This is the math the JAX net computes with
 ``lane_fold=False``.
 
-Every ``ResnetModItem`` runs the fused resnet item
+Every ``ResnetModItem`` of constant width runs the fused resnet item
 (``ops/kernels/resnet.py``): the CUDA kernels, forward and backward, on a
-CUDA tensor, its plain version on a CPU tensor. Parameters are float32
-masters cast to the compute dtype at each use, so gradients arrive in
-float32. Parameter names follow the JAX parameter tree, so
+CUDA tensor, its plain version on a CPU tensor. A width-changing item
+(``channel_change="first_item"``) runs the JAX lax path's plain math.
+Parameters are float32 masters cast to the compute dtype at each use, so
+gradients arrive in float32. Parameter names follow the JAX parameter tree, so
 ``convert.params_from_jax`` and ``params_to_jax`` are a renaming plus the
 Dense transposes.
 """
@@ -71,6 +72,25 @@ def _check_remat_policy(name: Optional[str]) -> None:
                          f"(full recompute), {', '.join(REMAT_POLICIES)}")
 
 
+def run_stack(stack: nn.Module, use_remat: bool,
+              remat_policy: Optional[str], h: Tensor, *args) -> Tensor:
+    """One level's item stack; with ``use_remat`` and gradients on, under
+    activation checkpointing (the counterpart of ``nn.remat(ItemStack,
+    policy=...)``): its activations are recomputed in the backward, all of
+    them or, with ``remat_policy``, all but the saved products. The graph is
+    the one without remat, so the gradients are the same bits."""
+    if not (use_remat and torch.is_grad_enabled()):
+        return stack(h, *args)
+    context_fn = torch_checkpoint.noop_context_fn
+    if remat_policy is not None:
+        context_fn = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            REMAT_POLICIES[remat_policy])
+    return torch_checkpoint.checkpoint(
+        stack, h, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=context_fn)
+
+
 def _cast(t: Tensor, dtype) -> Tensor:
     return t.to(dtype) if dtype is not None else t
 
@@ -128,20 +148,33 @@ def _check_unused_kwargs(unused: dict) -> None:
 class ResnetModItem(nn.Module):
     """(GN -> SiLU -> conv3) × 2 + identity, then the optional modulation
     epilogue x + GN(x)·(1 + scale) + shift with (scale, shift) =
-    Dense(SiLU(features)), zero-initialized. One fused kernel per item."""
+    Dense(SiLU(features)), zero-initialized. One fused kernel per item.
+
+    With ``in_channels`` other than ``channels`` (``channel_change=
+    "first_item"``), the item changes width: the first GroupNorm and conv
+    read ``in_channels`` and the identity becomes a 1×1 conv
+    (``shortcut_kernel`` [Cin, C], ``shortcut_bias``). That item runs the
+    plain math on every device, as the JAX package runs it on its lax path
+    (the fused kernel has no shortcut)."""
 
     def __init__(self, channels: int, groups: int = 8,
                  use_modulation: bool = True,
                  modulation_features: Optional[int] = None, dtype=None,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 in_channels: Optional[int] = None):
         super().__init__()
         c = channels
+        ci = c if in_channels is None else in_channels
         self.groups, self.use_modulation, self.dtype = groups, use_modulation, dtype
+        self.has_shortcut = ci != c
         p = dict(dtype=param_dtype, device=device)
-        self.gn1_scale, self.gn1_bias = new_param(c, **p), new_param(c, **p)
-        self.conv1_kernel, self.conv1_bias = new_param(3, c, c, **p), new_param(c, **p)
+        self.gn1_scale, self.gn1_bias = new_param(ci, **p), new_param(ci, **p)
+        self.conv1_kernel, self.conv1_bias = new_param(3, ci, c, **p), new_param(c, **p)
         self.gn2_scale, self.gn2_bias = new_param(c, **p), new_param(c, **p)
         self.conv2_kernel, self.conv2_bias = new_param(3, c, c, **p), new_param(c, **p)
+        if self.has_shortcut:
+            self.shortcut_kernel = new_param(ci, c, **p)
+            self.shortcut_bias = new_param(c, **p)
         if use_modulation:
             self.mod_gn_scale, self.mod_gn_bias = new_param(c, **p), new_param(c, **p)
             self.mod_dense = Dense(modulation_features, 2 * c, zero_init=True,
@@ -149,10 +182,9 @@ class ResnetModItem(nn.Module):
                                    device=device)
 
     def init_params(self, generator: Optional[torch.Generator]) -> None:
-        c = self.conv1_kernel.shape[1]
         for name, t in self.named_parameters(recurse=False):
             if name.endswith("_kernel"):
-                lecun_normal_(t, 3 * c, generator)
+                lecun_normal_(t, math.prod(t.shape[:-1]), generator)
             elif name.endswith("_scale"):
                 nn.init.ones_(t)
             else:
@@ -168,6 +200,8 @@ class ResnetModItem(nn.Module):
             mod = self.mod_dense(F.silu(features.to(x.dtype)))
             mods, modb = (t.contiguous() for t in mod.chunk(2, dim=-1))
             mgs, mgb = cast(self.mod_gn_scale), cast(self.mod_gn_bias)
+        if self.has_shortcut:
+            return self._changing_width(x, cast, mods, modb, mgs, mgb)
         return resnet_kernel.fused_resnet_item(
             x, cast(self.gn1_scale), cast(self.gn1_bias),
             cast(self.conv1_kernel), cast(self.conv1_bias),
@@ -175,6 +209,21 @@ class ResnetModItem(nn.Module):
             cast(self.conv2_kernel), cast(self.conv2_bias),
             mods, modb, mgs, mgb, groups=self.groups, eps=1e-5,
             use_modulation=self.use_modulation)
+
+    def _changing_width(self, x, cast, mods, modb, mgs, mgb) -> Tensor:
+        """The JAX lax path of a width-changing item
+        (audio_diffusion_tpu/ops/unet.py:154-174, 322-326)."""
+        h = group_norm(x, self.groups, cast(self.gn1_scale),
+                       cast(self.gn1_bias))
+        h = conv3(F.silu(h), cast(self.conv1_kernel), cast(self.conv1_bias))
+        h = group_norm(h, self.groups, cast(self.gn2_scale),
+                       cast(self.gn2_bias))
+        h = conv3(F.silu(h), cast(self.conv2_kernel), cast(self.conv2_bias))
+        y = x @ cast(self.shortcut_kernel) + cast(self.shortcut_bias) + h
+        if self.use_modulation:
+            hm = group_norm(y, self.groups, mgs, mgb)
+            y = y + hm * (1.0 + mods[:, None, :]) + modb[:, None, :]
+        return y
 
 
 class Downsample(nn.Module):
@@ -281,7 +330,8 @@ class InjectChannelsItem(nn.Module):
 class ItemStack(nn.Module):
     """One level's repeated item sequence:
     ([Resnet+Mod][Inject if context][Attn]·a[CrossAttn]·c) × items. Module
-    names follow flax's per-class counters."""
+    names follow flax's per-class counters. With ``in_channels`` other than
+    ``channels``, the first resnet item changes the width."""
 
     def __init__(self, channels: int, items: int, attentions: int,
                  use_modulation: bool, resnet_groups: int,
@@ -289,15 +339,21 @@ class ItemStack(nn.Module):
                  modulation_features: Optional[int],
                  cross_attentions: int = 0, context_channels: int = 0,
                  embedding_features: Optional[int] = None, dtype=None,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 in_channels: Optional[int] = None):
         super().__init__()
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        if in_channels == channels:
+            in_channels = None
+        if in_channels is not None and items < 1:
+            raise ValueError("a channel change in the first item requires "
+                             "items >= 1")
         self.layout = []
         for it in range(items):
             resnet = f"ResnetModItem_{it}"
             self.add_module(resnet, ResnetModItem(
                 channels, resnet_groups, use_modulation, modulation_features,
-                **common))
+                **common, in_channels=in_channels if it == 0 else None))
             inject = f"InjectChannelsItem_{it}" if context_channels else None
             if inject:
                 self.add_module(inject, InjectChannelsItem(
@@ -344,7 +400,10 @@ class XUNet(nn.Module):
     then GN -> SiLU -> conv3 to ``out_channels``. I/O is [B, C, T].
     Cross-attention items attend to ``embedding=`` [B, N,
     embedding_features]; a level with ``context_channels`` > 0 injects
-    ``channels=[...]``'s tensor at that depth."""
+    ``channels=[...]``'s tensor at that depth. ``channel_change`` says
+    where the down path changes width: ``"resample"``, in Downsample's
+    projection; ``"first_item"``, in each level's first resnet item (from
+    level 1 on; Downsample keeps the source width)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  channels: Sequence[int], factors: Sequence[int],
@@ -356,9 +415,13 @@ class XUNet(nn.Module):
                  resnet_groups: int = 8, use_modulation: bool = True,
                  modulation_features: Optional[int] = None,
                  use_remat: bool = False, remat_policy: Optional[str] = None,
+                 channel_change: str = "resample",
                  dtype=None, param_dtype=torch.float32, device=None):
         super().__init__()
         _check_remat_policy(remat_policy)
+        if channel_change not in ("resample", "first_item"):
+            raise ValueError(f"channel_change must be 'resample' or "
+                             f"'first_item', got {channel_change!r}")
         self.use_remat = use_remat
         self.remat_policy = remat_policy
         cross_attentions = cross_attentions or [0] * len(channels)
@@ -373,18 +436,23 @@ class XUNet(nn.Module):
         self.dtype = dtype
         common = dict(dtype=dtype, param_dtype=param_dtype, device=device)
 
-        def stack(i: int) -> ItemStack:
+        def stack(i: int, in_c: Optional[int] = None) -> ItemStack:
             return ItemStack(channels[i], items[i], attentions[i],
                              use_modulation, resnet_groups, attention_heads,
                              attention_features, modulation_features,
                              cross_attentions[i], context_channels[i],
-                             embedding_features, **common)
+                             embedding_features, **common, in_channels=in_c)
 
         prev_c = in_channels
         for i in range(self.num_levels):
-            self.add_module(f"down_{i}", Downsample(prev_c, channels[i],
-                                                    factors[i], **common))
-            self.add_module(f"items_down_{i}", stack(i))
+            # Level 0 always changes width in the projection: the raw input
+            # channels (stereo: 2) cannot be group-normed.
+            level_cc = channel_change == "first_item" and i > 0
+            self.add_module(f"down_{i}", Downsample(
+                prev_c, prev_c if level_cc else channels[i], factors[i],
+                **common))
+            self.add_module(f"items_down_{i}",
+                            stack(i, prev_c if level_cc else None))
             prev_c = channels[i]
         for i in range(self.num_levels):
             if i < self.num_levels - 1:
@@ -402,23 +470,8 @@ class XUNet(nn.Module):
         self.out_bias = new_param(out_channels, **p)
 
     def _stack(self, name: str, h: Tensor, *args) -> Tensor:
-        """One level's item stack; with ``use_remat`` and gradients on,
-        under activation checkpointing (the counterpart of ``nn.remat(
-        ItemStack, policy=...)``): its activations are recomputed in the
-        backward, all of them or, with ``remat_policy``, all but the saved
-        products. The graph is the one without remat, so the gradients are
-        the same bits."""
-        stack = getattr(self, name)
-        if not (self.use_remat and torch.is_grad_enabled()):
-            return stack(h, *args)
-        context_fn = torch_checkpoint.noop_context_fn
-        if self.remat_policy is not None:
-            context_fn = functools.partial(
-                torch_checkpoint.create_selective_checkpoint_contexts,
-                REMAT_POLICIES[self.remat_policy])
-        return torch_checkpoint.checkpoint(
-            stack, h, *args, use_reentrant=False, preserve_rng_state=False,
-            context_fn=context_fn)
+        return run_stack(getattr(self, name), self.use_remat,
+                         self.remat_policy, h, *args)
 
     def init_params(self, generator: Optional[torch.Generator]) -> None:
         nn.init.ones_(self.out_gn_scale)

@@ -1,21 +1,33 @@
 """Small helpers (own copies of audio_diffusion_tpu/utils/__init__.py:103-180)
-and the device rule of the port."""
+and the device rule of the port. The JAX package's ``Static``,
+``contains_array`` and ``split_static_kwargs`` key its jit cache; the port
+has no jit cache and no counterpart of them."""
 from __future__ import annotations
 
 from functools import reduce
 from math import ceil, floor, log2
-from typing import Callable, Dict, Optional, Sequence, Tuple, TypeVar, Union
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple, TypeVar,
+                    Union)
 
 import torch
 
 T = TypeVar("T")
 
-__all__ = ["exists", "default", "groupby", "prod", "closest_power_2",
-           "dequant_pcm16", "resolve_device"]
+__all__ = ["exists", "iff", "is_sequence", "default", "to_list", "prod",
+           "closest_power_2", "group_dict_by_prefix", "groupby",
+           "prefix_dict", "dequant_pcm16", "resolve_device"]
 
 
 def exists(val: Optional[T]) -> bool:
     return val is not None
+
+
+def iff(condition: bool, value: T) -> Optional[T]:
+    return value if condition else None
+
+
+def is_sequence(obj) -> bool:
+    return isinstance(obj, (list, tuple))
 
 
 def default(val: Optional[T], d: Union[Callable[[], T], T]) -> T:
@@ -23,6 +35,14 @@ def default(val: Optional[T], d: Union[Callable[[], T], T]) -> T:
     if exists(val):
         return val  # type: ignore[return-value]
     return d() if callable(d) else d
+
+
+def to_list(val: Union[T, Sequence[T]]) -> List[T]:
+    if isinstance(val, tuple):
+        return list(val)
+    if isinstance(val, list):
+        return val
+    return [val]  # type: ignore[list-item]
 
 
 def prod(vals: Sequence[int]) -> int:
@@ -53,6 +73,10 @@ def groupby(prefix: str, d: Dict, keep_prefix: bool = False) -> Tuple[Dict, Dict
     if keep_prefix:
         return kwargs_with_prefix, kwargs
     return {k[len(prefix):]: v for k, v in kwargs_with_prefix.items()}, kwargs
+
+
+def prefix_dict(prefix: str, d: Dict) -> Dict:
+    return {prefix + str(k): v for k, v in d.items()}
 
 
 def dequant_pcm16(x):

@@ -106,6 +106,18 @@ and a 3-step stage of a small net are held on the card against the CPU
 ``CorpusEmbedder`` trains at its defaults on a synthesized corpus and
 embeds on the card against the CPU; the CLI's ``distill``, ``sample``
 and ``eval`` run as subprocesses.
+The 2-D and 3-D nets and ``channel_change="first_item"``: the CPU tests'
+small nets on the card against the CPU (``nd_small_reference``: forward,
+VSampler and SDE samples with host-made draws, the v-loss's gradients,
+the 2-D net's int8 leaves bit-equal); ``dim2_full``, the DDPM LSUN-256
+U-Net's widths on 256 x 256 RGB images, and ``dim3_full``, a 3-D net on
+16-frame 64 x 64 clips: a 50-step sample at batch 1 (a rerun bit for bit,
+no fused-item launch: the item is a 1-D kernel) and Adam steps at batch 8
+and 4; ``first_item_flagship``, the flagship whose down path changes width
+in each level's first item: 1,800 launches per 50-step sample and 36 + 36
+per train step (``first_item_launches``, ``first_item_train_launches``:
+the six width-changing items take the plain path by geometry), the six
+items' device time per pass beside the fused items'.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2 and the served batch of 8, with the same bars.
@@ -247,6 +259,35 @@ DISTILL_BASE_STEPS = 8
 EMBED_FILES, EMBED_SECONDS, EMBED_STEPS = 16, 4, 20
 # ms per train step by phase_train's phase name, for the distill phases.
 TRAIN_MS = {}
+# The 2-D/3-D nets and channel_change="first_item". Small: the CPU tests'
+# nets (tests/test_torch_unet2d.py, test_torch_first_item.py). Full width:
+# the DDPM LSUN-256 U-Net's widths (Ho et al. 2020, 256 x 256 RGB, GroupNorm
+# 32, attention at 16 x 16 and 8 x 8) and a 3-D net on the 16-frame 64 x 64
+# clips of Video Diffusion Models (Ho et al. 2022; the 16 frames bound the
+# product of the factors); the README flagship with first_item, whose six
+# width-changing items (levels 1-5 and 7) take the plain path.
+SMALL_ND = dict(in_channels=3, channels=[8, 16, 32], factors=[1, 2, 2],
+                items=[1, 2, 1], attentions=[0, 0, 1],
+                cross_attentions=[0, 0, 1], context_channels=[0, 8, 0],
+                attention_heads=2, attention_features=8, resnet_groups=4,
+                modulation_features=16, embedding_features=12)
+SMALL_ND_SPATIAL = {2: (16, 16), 3: (8, 16, 16)}
+SMALL_FIRST_ITEM = dict(in_channels=2, channels=[8, 16, 32],
+                        factors=[1, 2, 2], items=[1, 2, 1],
+                        modulation_features=32, lane_fold=False,
+                        channel_change="first_item")
+DIM2_FULL = dict(in_channels=3, channels=[128, 128, 256, 256, 512, 512],
+                 factors=[1, 2, 2, 2, 2, 2], items=[2] * 6,
+                 attentions=[0, 0, 0, 0, 1, 1], attention_heads=8,
+                 attention_features=64, resnet_groups=32,
+                 modulation_features=512)
+DIM2_SHAPE, DIM2_TRAIN_BATCH = (3, 256, 256), 8
+DIM3_FULL = dict(in_channels=3, channels=[64, 128, 256, 512],
+                 factors=[1, 2, 2, 2], items=[2] * 4, attentions=[0, 0, 0, 1],
+                 attention_heads=8, attention_features=64, resnet_groups=32,
+                 modulation_features=256)
+DIM3_SHAPE, DIM3_TRAIN_BATCH = (3, 16, 64, 64), 4
+FIRST_ITEM_SHORTCUTS = 6
 
 
 def emit(obj) -> None:
@@ -3121,12 +3162,302 @@ def phase_cli_distill_eval(root: Path):
                              f"{summary}")
 
 
+def moved(cond, device):
+    """The conditioning kwargs on ``device`` (a ``channels=`` list keeps its
+    Nones)."""
+    return {k: ([None if t is None else t.to(device) for t in v]
+                if isinstance(v, list) else v.to(device))
+            for k, v in cond.items()}
+
+
+def phase_nd_small_reference():
+    """The CPU tests' 2-D, 3-D and ``first_item`` nets on the card (f32,
+    TF32 off: cuDNN's convs, and the kernels on ``first_item``'s
+    constant-width items) against the same weights on the CPU: the forward,
+    a 4-step VSampler sample of host-made noise, a 4-step SDE sample whose
+    draws come from the host through the replaced ``noise`` hooks, the
+    v-loss and its gradients at host-made σ and noise, and the 2-D net's
+    int8 leaves bit-equal. The bars of small_reference and train_small."""
+    import torch
+    from audio_diffusion_torch import (DiffusionModel, SDESampler, UNetV0,
+                                       quantize_params)
+    from audio_diffusion_torch.diffusion.vdiffusion import v_loss
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    rows, failures = {}, []
+    for name, dim, cfg in (("dim2", 2, SMALL_ND), ("dim3", 3, SMALL_ND),
+                           ("first_item", 1, SMALL_FIRST_ITEM)):
+        spatial = SMALL_ND_SPATIAL.get(dim, (128,))
+        cpu = DiffusionModel(net_t=UNetV0, dim=dim, device="cpu", seed=1,
+                             **cfg)
+        fill_zero_params(cpu)
+        gpu = DiffusionModel(net_t=UNetV0, dim=dim, **cfg)
+        gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+        gen = torch.Generator().manual_seed(8)
+        x, noise = (torch.randn(2, cfg["in_channels"], *spatial,
+                                generator=gen) for _ in range(2))
+        sigmas = torch.tensor([0.3, 0.8])
+        cond = {} if dim == 1 else dict(
+            embedding=torch.randn(2, 5, 12, generator=gen),
+            channels=[None, torch.randn(2, 8, *(s // 2 for s in spatial),
+                                        generator=gen)])
+        outs = {}
+        for model in (cpu, gpu):
+            dev = model.device
+            c = moved(cond, dev)
+            with torch.inference_mode():
+                fwd = model.net.apply(model.params, x.to(dev),
+                                      sigmas.to(dev), **c)
+                resnet.fused_resnet_item.launches = 0
+                vs = model.sample(x.to(dev), num_steps=4, **c)
+                launches = resnet.fused_resnet_item.launches
+                with host_draws(9):
+                    sde = SDESampler(model.net, eta=0.5).sample(
+                        model.params, model.generator, x.to(dev), 4, **c)
+            params = model.params
+            loss = v_loss(model.net, params, x.to(dev), sigmas.to(dev),
+                          noise.to(dev), **c)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            outs[dev.type] = dict(
+                forward=fwd.cpu(), sample=vs.cpu(), sde=sde.cpu(),
+                loss=loss.item(), grads=[g.cpu() for g in grads],
+                launches=launches)
+        want, got = outs["cpu"], outs["cuda"]
+        errs = {k: (got[k] - want[k]).abs().max().item()
+                for k in ("forward", "sample", "sde")}
+        norm = torch.linalg.vector_norm(torch.stack(
+            [g.norm() for g in want["grads"]])).item()
+        grad_err = max(max(0.0, (a - b).abs().max().item() - 1e-6 * norm)
+                       / a.abs().max().item()
+                       for a, b in zip(want["grads"], got["grads"]))
+        row = dict(max_abs_err=errs, loss_cpu=want["loss"],
+                   loss_card=got["loss"], max_grad_rel_err=grad_err,
+                   sample_launches=got["launches"])
+        if name == "dim2":
+            q_cpu, q_gpu = (quantize_params(m.params, min_size=256)
+                            for m in (cpu, gpu))
+            leaves = [n for n, v in q_cpu.items() if hasattr(v, "qscale")]
+            row["int8_leaves"] = len(leaves)
+            for n in leaves:
+                if not (torch.equal(q_gpu[n].q.cpu(), q_cpu[n].q) and
+                        torch.equal(q_gpu[n].qscale.cpu(), q_cpu[n].qscale)):
+                    raise AssertionError(f"nd_small_reference int8 {n}: "
+                                         "card and CPU differ")
+        rows[name] = row
+        failures += [f"{name} {k}: max-abs {errs[k]}"
+                     for k in ("forward", "sample", "sde")
+                     if not (torch.isfinite(got[k]).all() and errs[k] < 1e-3)]
+        if not abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"]):
+            failures.append(f"{name}: loss {got['loss']} vs {want['loss']}")
+        if not grad_err <= 1e-3:
+            failures.append(f"{name}: gradient rel err {grad_err}")
+        expected = 4 * 6 if name == "first_item" else 0
+        if got["launches"] != expected:
+            failures.append(f"{name}: {got['launches']} item launches in "
+                            f"the 4-step sample, expected {expected}")
+    emit(dict(phase="nd_small_reference", dtype="float32", steps=4,
+              sde_eta=0.5, tolerance=1e-3, grad_tolerance=1e-3,
+              int8_bit_equal=True, **rows))
+    if failures:
+        raise AssertionError(f"nd_small_reference: {failures}")
+
+
+def nd_sample_and_train(model, phase, shape, train_batch, seed=0):
+    """A 2-D/3-D main path at full width: a 50-step VSampler sample of
+    ``shape`` at batch 1 (a 2-step warm-up, two timed runs that must give
+    the same bits, a 2-step profile), then Adam steps at ``train_batch``
+    (bf16 compute over f32 masters, through ``DiffusionModel.loss`` and
+    ``make_train_step``): a warm-up step, three timed ones; every parameter
+    must move. The fused item is a 1-D kernel: these paths launch it no
+    time, as the JAX package runs no Pallas kernel at dim 2/3."""
+    import torch
+    from audio_diffusion_torch import make_train_step
+    from audio_diffusion_torch.ops.kernels import resnet
+
+    item = resnet.fused_resnet_item
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn(1, *shape, device="cuda", generator=gen)
+    model.sample(noise, num_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    item.launches = 0
+    outs, step_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(model.sample(noise, num_steps=NUM_STEPS))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / NUM_STEPS)
+    launches = item.launches
+    sample_peak = torch.cuda.max_memory_allocated()
+    if outs[0].shape != noise.shape or not torch.isfinite(outs[0]).all():
+        raise AssertionError(f"{phase}: bad shape or non-finite sample")
+    same = torch.equal(outs[0], outs[1])
+    emit(dict(phase=f"{phase}_sample", steps=NUM_STEPS, batch=1,
+              shape=list(noise.shape), dtype="bfloat16",
+              ms_per_step=min(step_ms), ms_per_step_runs=step_ms,
+              rerun_bit_equal=same, item_launches=launches,
+              peak_memory_bytes=sample_peak, peak_gb=sample_peak / 1e9,
+              out_std=outs[0].float().std().item()))
+    if not same:
+        raise AssertionError(f"{phase}: a rerun of the sample differs")
+    if launches:
+        raise AssertionError(f"{phase}: {launches} fused-item launches")
+    del outs
+    phase_profile(f"{phase}_sample_profile",
+                  lambda: model.sample(noise, num_steps=2), steps=2)
+
+    batch = torch.randn(train_batch, *shape, device="cuda",
+                        generator=gen).clamp_(-1.0, 1.0)
+    leaves = list(model.params.values())
+    before = [p.detach().clone() for p in leaves]
+    init_state, train_step = make_train_step(
+        model.loss, functools.partial(torch.optim.Adam, lr=1e-4))
+    state = init_state(model.params, gen)
+    state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    item.launches = item.backward_launches = 0
+    step_ms, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = (item.launches, item.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    still = [n for (n, p), p0 in zip(model.params.items(), before)
+             if torch.equal(p.detach(), p0)]
+    median = sorted(step_ms)[len(step_ms) // 2]
+    emit(dict(phase=f"{phase}_train", batch=train_batch,
+              shape=list(batch.shape), dtype="bfloat16",
+              optimizer="Adam(lr=1e-4)", steps=TRAIN_STEPS,
+              ms_per_step=median, ms_per_step_runs=step_ms,
+              samples_per_s=train_batch / median * 1e3, metrics=metrics,
+              item_launches=launches, parameters=len(leaves),
+              parameter_elements=sum(p.numel() for p in leaves),
+              peak_memory_bytes=peak, peak_gb=peak / 1e9))
+    for m in metrics:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{phase}: non-finite metrics {m}")
+    if still:
+        raise AssertionError(f"{phase}: parameters that did not move: "
+                             f"{still[:5]} ({len(still)})")
+    if any(launches):
+        raise AssertionError(f"{phase}: {launches} fused-item launches")
+    del before, state
+    return median
+
+
+def phase_nd_full(torch, dim):
+    """``DiffusionModel(net_t=UNetV0, dim=2)`` at the DDPM LSUN-256 widths
+    (256 x 256 RGB, Adam at batch 8), or ``dim=3`` on 16-frame 64 x 64
+    clips (Adam at batch 4); bf16, random weights from a seed."""
+    from audio_diffusion_torch import DiffusionModel, UNetV0
+
+    cfg, shape, batch = ((DIM2_FULL, DIM2_SHAPE, DIM2_TRAIN_BATCH) if dim == 2
+                         else (DIM3_FULL, DIM3_SHAPE, DIM3_TRAIN_BATCH))
+    model = DiffusionModel(net_t=UNetV0, dim=dim, dtype=torch.bfloat16,
+                           seed=dim, **cfg)
+    fill_zero_params(model)
+    nd_sample_and_train(model, f"dim{dim}_full", shape, batch, seed=dim)
+
+
+def item_device_ms(model, noise, flush):
+    """Device time of each resnet item of one bf16 pass at σ = 0.5 (L2
+    flushed, median of REPS), split into the width-changing items (the
+    plain path) and the fused ones: (shortcut ms, fused ms, rows)."""
+    import torch
+    from audio_diffusion_torch import cast_inference_params
+    from audio_diffusion_torch.ops.unet import ResnetModItem
+
+    params = cast_inference_params(model.params, torch.bfloat16)
+    calls = []
+    items = [(n, m) for n, m in model.net.module.named_modules()
+             if isinstance(m, ResnetModItem)]
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: calls.append(
+            (name, mod, args[0].detach(), args[1].detach())))
+        for name, m in items]
+    try:
+        with torch.inference_mode():
+            model.net.apply(params, noise, torch.full((1,), 0.5,
+                                                      device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    with torch.inference_mode():
+        for name, mod, x, features in calls:
+            # The pass's own parameters: the bf16 cast swapped in.
+            prefix = name + "."
+            own = {k[len(prefix):]: v for k, v in params.items()
+                   if k.startswith(prefix)}
+            ms = cuda_ms(lambda: torch.func.functional_call(
+                mod, own, (x, features)), flush)
+            rows.append(dict(item=name, shortcut=mod.has_shortcut,
+                             shape=list(x.shape), ms=ms))
+    short = sum(r["ms"] for r in rows if r["shortcut"])
+    fused = sum(r["ms"] for r in rows if not r["shortcut"])
+    return short, fused, rows
+
+
+def phase_first_item_flagship(torch, noise):
+    """The README flagship with ``channel_change="first_item",
+    lane_fold=False`` in bf16: a 50-step sample at batch 1 (1,800 forward
+    launches: 36 of the 42 items per pass, the six width-changing ones on
+    the plain path), a rerun bit for bit, the six items' device time per
+    pass beside the fused items', and Adam steps at batch 8 (36 + 36
+    launches per step, every parameter moved). Returns (sample launches,
+    train launches)."""
+    from audio_diffusion_torch import DiffusionModel, UNetV0, presets
+
+    model = DiffusionModel(net_t=UNetV0, **presets.UNCONDITIONAL_48K,
+                           dtype=torch.bfloat16, seed=3, lane_fold=False,
+                           channel_change="first_item")
+    fill_zero_params(model)
+    shortcuts = [n for n in model.params if n.endswith("shortcut_kernel")]
+    per_pass = 2 * sum(ITEMS) - FIRST_ITEM_SHORTCUTS
+    out, launches, step_ms, peak = sample_runs(model, noise)
+    again = model.sample(noise, num_steps=NUM_STEPS)
+    same = torch.equal(out, again)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    short_ms, fused_ms, rows = item_device_ms(model, noise, flush)
+    del flush
+    emit(dict(phase="first_item_flagship_sample", steps=NUM_STEPS, batch=1,
+              length=LENGTH, dtype="bfloat16",
+              ms_per_step=sorted(step_ms)[1], ms_per_step_runs=step_ms,
+              item_launches=launches, expected_launches=per_pass * NUM_STEPS,
+              shortcut_items=len(shortcuts), rerun_bit_equal=same,
+              shortcut_items_ms_per_pass=short_ms,
+              fused_items_ms_per_pass=fused_ms,
+              shortcut_item_ms={r["item"]: r["ms"] for r in rows
+                                if r["shortcut"]},
+              peak_memory_bytes=peak, out_std=out.float().std().item()))
+    if len(shortcuts) != FIRST_ITEM_SHORTCUTS:
+        raise AssertionError(f"first_item: {len(shortcuts)} shortcut items, "
+                             f"expected {FIRST_ITEM_SHORTCUTS}")
+    if launches != per_pass * NUM_STEPS:
+        raise AssertionError(f"first_item: {launches} item launches in the "
+                             f"sample, expected {per_pass * NUM_STEPS}")
+    if out.shape != noise.shape or not torch.isfinite(out).all():
+        raise AssertionError("first_item: bad shape or non-finite sample")
+    if not same:
+        raise AssertionError("first_item: a rerun of the sample differs")
+    del out, again
+    train = phase_train(model, "first_item_flagship_train",
+                        items_per_pass=per_pass)
+    del model
+    return launches, train
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     # Fails outside a checkout of the repo, before any result is printed.
     from audio_diffusion_torch.ops.kernels import resnet
 
@@ -3170,6 +3501,7 @@ def main() -> int:
     phase_task_small_reference()
     phase_quant_small_reference()
     phase_distill_small_reference()
+    phase_nd_small_reference()
 
     model = build_flagship(torch)
     noise = torch.randn(1, 2, LENGTH, device="cuda",
@@ -3250,6 +3582,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # The 2-D and 3-D nets at full width (cuDNN convs: no fused item at dim
+    # 2/3), then the flagship with channel_change="first_item", each with
+    # its own counts.
+    for dim in (2, 3):
+        phase_nd_full(torch, dim)
+        gc.collect()
+        torch.cuda.empty_cache()
+    first_item_launches, first_item_train = phase_first_item_flagship(
+        torch, noise)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # The autoregressive model: its sample and its train step, whose items
     # run the no-modulation branch.
     model = build_ar_model(torch)
@@ -3323,6 +3667,7 @@ def main() -> int:
                                        for r in train_rows)
                 for key in keys}
 
+    emit(dict(phase="run", seconds=time.perf_counter() - t_start))
     guided = summary("", "", "", guided_rows)
     nomod = summary("", "", "", nomod_rows)
     nomod_bwd = summary("", "", "", nomod_bwd_rows)
@@ -3367,6 +3712,8 @@ def main() -> int:
                 distilled_sample_launches=distill_launches[2],
                 guidance_distill_launches_per_step=(
                     guidance_distill_launches[0]),
+                first_item_launches=first_item_launches,
+                first_item_train_launches=first_item_train[0],
                 **{f"batch8_{k}": batch8_fwd[k]
                    for k in per_pass_keys + ("host_ms", "bound_by")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
@@ -3377,6 +3724,7 @@ def main() -> int:
                 distill_launches_per_step=distill_launches[1],
                 guidance_distill_launches_per_step=(
                     guidance_distill_launches[1]),
+                first_item_train_launches=first_item_train[1],
                 conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
                 train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
                                    for r in bwd_train_rows),

@@ -740,3 +740,55 @@ def test_export_encoder_reuse_on_card(cuda_device, tmp_path):
     before = fused_resnet_item.launches
     assert torch.equal(sampler(model.params, noise), want)
     assert fused_resnet_item.launches - before == 2 * (4 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_nd_net_on_card_matches_cpu(cuda_device, dim):
+    """A small 2-D/3-D net (cross-attention, context injection, CFG) on
+    the card (cuDNN convs, float32, TF32 off) against the CPU: a guided
+    4-step sample with encoder reuse, max-abs < 1e-3, and a rerun on the
+    card bit for bit."""
+    cfg = dict(in_channels=3, channels=[8, 16, 32], factors=[1, 2, 2],
+               items=[1, 2, 1], attentions=[0, 0, 1],
+               cross_attentions=[0, 0, 1], context_channels=[0, 8, 0],
+               attention_heads=2, attention_features=8, resnet_groups=4,
+               modulation_features=16, embedding_features=12,
+               use_embedding_cfg=True, embedding_max_length=5)
+    spatial = (16, 16) if dim == 2 else (8, 16, 16)
+    cpu = DiffusionModel(net_t=UNetV0, dim=dim, device="cpu", seed=1, **cfg)
+    gpu = DiffusionModel(net_t=UNetV0, dim=dim, device=cuda_device, **cfg)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    rs = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rs.standard_normal(s).astype(np.float32))
+    noise, emb = f(1, 3, *spatial), f(1, 5, 12)
+    ctx = f(1, 8, *(s // 2 for s in spatial))
+    kw = dict(num_steps=4, embedding_scale=3.0, encoder_reuse=2)
+    want = cpu.sample(noise, embedding=emb, channels=[None, ctx], **kw)
+    runs = [gpu.sample(noise, embedding=emb.to(cuda_device),
+                       channels=[None, ctx.to(cuda_device)], **kw).cpu()
+            for _ in range(2)]
+    assert torch.isfinite(runs[0]).all()
+    assert (runs[0] - want).abs().max().item() < 1e-3
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_first_item_net_on_card_matches_cpu(cuda_device):
+    """channel_change="first_item" on the card: the two width-changing
+    items run the plain math, the other six launch the kernel (6 per
+    pass), and a 4-step sample matches the CPU's (float32)."""
+    cfg = dict(in_channels=2, channels=[8, 16, 32], factors=[1, 2, 2],
+               items=[1, 2, 1], modulation_features=32, lane_fold=False,
+               channel_change="first_item")
+    cpu = DiffusionModel(net_t=UNetV0, device="cpu", seed=1, **cfg)
+    gpu = DiffusionModel(net_t=UNetV0, device=cuda_device, **cfg)
+    gpu.net.module.load_state_dict(cpu.net.module.state_dict())
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 2, 128)).astype(np.float32))
+    want = cpu.sample(noise, num_steps=4)
+    before = fused_resnet_item.launches
+    got = gpu.sample(noise, num_steps=4).cpu()
+    assert fused_resnet_item.launches - before == 4 * 6
+    assert (got - want).abs().max().item() < 1e-3

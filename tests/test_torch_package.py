@@ -27,7 +27,8 @@ def test_import_loads_no_jax():
             "audio_diffusion_torch.serve, audio_diffusion_torch.server, "
             "audio_diffusion_torch.export, audio_diffusion_torch.ops.quant, "
             "audio_diffusion_torch.distill, audio_diffusion_torch.eval, "
-            "audio_diffusion_torch.embed;"
+            "audio_diffusion_torch.embed, audio_diffusion_torch.ops.unet2d, "
+            "audio_diffusion_torch.ops.unet3d;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")

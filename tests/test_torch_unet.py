@@ -190,8 +190,7 @@ def test_default_init_matches_flax_distributions():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dim=2), dict(use_text_conditioning=True, text_encoder=None),
-    dict(channel_change="first_item")])
+    dict(use_text_conditioning=True, text_encoder=None)])
 def test_unported_options_raise(kwargs):
     cfg = {**CFG, **kwargs}
     dim = cfg.pop("dim", 1)
