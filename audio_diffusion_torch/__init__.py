@@ -31,7 +31,12 @@ commands; progressive and guidance distillation
 (``ProgressiveDistiller``) with the ``distill`` command, and evaluation:
 the band-profile metrics (``eval``), the corpus-trained embedder
 (``CorpusEmbedder``, ``frechet_embedding_distance``) and the ``eval``
-command.
+command; and multi-GPU (``parallel``): the ``("data", "model")`` mesh on
+``torch.distributed`` (``create_mesh``, ``shard_batch``, ``global_batch``,
+``param_sharding_rules``, ``shard_params``), the data-parallel, ZeRO-1 and
+model-sharded train step, ``sample_length_sharded`` on a length-sharded
+fused item, and ``mesh=`` through the ``Trainer``, ``DeviceCorpus``, the
+distiller and the ``train`` and ``distill`` commands.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
@@ -55,7 +60,9 @@ from .ops import (AppendChannelsPlugin, LTPlugin, Net, UNetV0, XUNet,
                   cast_inference_params)
 from .ops.quant import (QTensor, dequantize_params, quantize_params,
                         unpack_int4_leaves)
-from .parallel import TrainState, make_train_step
+from .parallel import (TrainState, create_mesh, global_batch, make_train_step,
+                       param_sharding_rules, sample_length_sharded,
+                       shard_batch, shard_params)
 from .serve import GenerationService
 from .server import make_server, wav_bytes
 
@@ -82,6 +89,12 @@ __all__ = [
     "UniformDistribution",
     "TrainState",
     "make_train_step",
+    "create_mesh",
+    "shard_batch",
+    "global_batch",
+    "shard_params",
+    "param_sharding_rules",
+    "sample_length_sharded",
     "Sampler",
     "VSampler",
     "SDESampler",

@@ -22,6 +22,12 @@ port's ``model.save`` file; ``--init-from`` takes such a file), and
 ``model_distilled<steps>`` for each ``distill`` run. Every command but
 ``eval`` (numpy on the host) runs on the CUDA card unless ``--device`` says
 otherwise (``cpu``).
+
+``train`` and ``distill`` build a mesh over every rank (``create_mesh()``),
+as the JAX CLI does: alone it is one rank and changes nothing, and under
+``torchrun --nproc_per_node N python -m audio_diffusion_torch train ...``
+the run is data-parallel over N cards, each rank taking its rows of every
+global ``--batch``; rank 0 writes the run's files.
 """
 from __future__ import annotations
 
@@ -75,6 +81,40 @@ def _device(args):
     from .utils import resolve_device
 
     return resolve_device(args.device)
+
+
+def _mesh(device):
+    """The mesh of a ``train`` or ``distill`` run over every rank, and this
+    rank's device (the user's alone; the launcher's card under
+    ``torchrun``)."""
+    from .parallel import create_mesh
+    from .parallel.mesh import mesh_device
+
+    import torch.distributed as dist
+
+    mesh = create_mesh(device.type)
+    if mesh.size() > 1:
+        device = mesh_device(mesh)
+    if _rank0(mesh):
+        print(f"mesh: data={mesh.size(0)} x model={mesh.size(1)} over "
+              f"{dist.get_backend()}")
+    return mesh, device
+
+
+def _rank0(mesh) -> bool:
+    return mesh.get_rank() == 0
+
+
+def _rank_rows(feed, mesh):
+    """This rank's rows of each global batch (or ``(x, cond)`` pair) of a
+    host feed that every rank reads alike; the feed itself on one data
+    rank."""
+    from .parallel import shard_batch
+    from .parallel.mesh import axis_size
+
+    if axis_size(mesh, "data") == 1:
+        return feed
+    return (shard_batch(b, mesh) for b in feed)
 
 
 def _make_text_encoder(spec: Dict, cfg: Dict, device):
@@ -156,10 +196,12 @@ def _build_model(cfg: Dict, sampler: str, device, task: str = "unconditional",
     return DiffusionModel(sampler_t=sampler_t, **common, **cfg)
 
 
-def _load_dataset(args, device):
+def _load_dataset(args, device, mesh):
     """Dataset with --data-placement semantics: "device" keeps the whole
     corpus on the card and crops batches there (no per-step uploads);
-    "auto" picks device when the corpus fits comfortably (<= 1 GiB)."""
+    "auto" picks device when the corpus fits comfortably (<= 1 GiB). A
+    device corpus yields this rank's rows of each global batch; a host
+    dataset yields the global batch in every rank (see _rank_rows)."""
     from .data import AudioDataset, DeviceCorpus
 
     ds = AudioDataset(args.data, crop_frames=args.crop,
@@ -172,7 +214,7 @@ def _load_dataset(args, device):
         ds = DeviceCorpus(args.data, crop_frames=args.crop,
                           batch_size=args.batch, seed=args.seed,
                           max_bytes=max(corpus_bytes, 1 << 30),
-                          device=device)
+                          mesh=mesh, device=device)
     place = (f"device-resident ({corpus_bytes/2**20:.0f} MB on "
              f"{device.type}, no per-step uploads)" if use_device
              else f"host (upload dtype {ds.dtype.name}"
@@ -222,12 +264,13 @@ def _caption_table(ds, caption_dir, encoder):
 
 
 def _cmd_train(args) -> None:
-    from .data import AudioDataset
+    from .data import AudioDataset, DeviceCorpus
     from .train import Trainer, TrainerConfig
 
     device = _device(args)
     if args.embedding_dir is not None and args.caption_dir is not None:
         raise SystemExit("pass --embedding-dir OR --caption-dir, not both")
+    mesh, device = _mesh(device)
     if args.caption_dir is not None or args.embedding_dir is not None:
         # Per-file conditioning rides each crop as an (x, cond) tuple: host
         # data path (the table is indexed per crop on the host).
@@ -241,7 +284,7 @@ def _cmd_train(args) -> None:
         print(f"dataset: {len(ds.files)} files, {ds.channels} ch @ "
               f"{ds.sample_rate} Hz, crop {args.crop}, {what}")
     else:
-        ds = _load_dataset(args, device)
+        ds = _load_dataset(args, device, mesh)
     cfg, task = _resolve_config(args.preset)
     if args.task is not None:
         task = args.task
@@ -277,6 +320,7 @@ def _cmd_train(args) -> None:
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    write = _rank0(mesh)
     # The resolved config, so `sample` rebuilds the same model.
     recorded = {**cfg, "_sample_rate": ds.sample_rate, "_task": task}
     if task == "upsampler":
@@ -287,7 +331,8 @@ def _cmd_train(args) -> None:
         model.load(args.init_from)
         recorded["_init_from"] = str(args.init_from)
         print(f"warm start: params loaded from {args.init_from}")
-    (out / "config.json").write_text(json.dumps(recorded, indent=1))
+    if write:
+        (out / "config.json").write_text(json.dumps(recorded, indent=1))
     trainer = Trainer(model, TrainerConfig(
         learning_rate=args.lr, ema_decay=args.ema_decay,
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
@@ -296,7 +341,7 @@ def _cmd_train(args) -> None:
         checkpoint_dir=str(out / "ckpts"),
         checkpoint_every=args.checkpoint_every, log_every=args.log_every,
         accum_steps=args.accum_steps,
-        steps_per_call=args.steps_per_call))
+        steps_per_call=args.steps_per_call), mesh=mesh)
     resumed = trainer.restore_latest()
     remaining = args.steps
     if resumed is not None:
@@ -315,6 +360,8 @@ def _cmd_train(args) -> None:
         # CFG training: drop the embedding at this rate so the null
         # branch learns.
         fit_cond["embedding_mask_proba"] = args.embedding_mask_proba
+    if not isinstance(ds, DeviceCorpus):
+        feed = _rank_rows(feed, mesh)
     trainer.fit(feed, num_steps=remaining, **fit_cond)
     if args.ema_decay is not None:
         import torch
@@ -323,8 +370,9 @@ def _cmd_train(args) -> None:
         with torch.no_grad():
             for name, p in model.params.items():
                 p.copy_(trainer.ema_params[name])
-    model.save(out / "model")
-    print(f"saved model params to {out / 'model'}")
+    if write:
+        model.save(out / "model")
+        print(f"saved model params to {out / 'model'}")
 
 
 def _load_run_config(args):
@@ -713,6 +761,7 @@ def _cmd_distill(args) -> None:
         python -m audio_diffusion_torch sample \\
             --model run/model_distilled8 --steps 8 --out fast/
     """
+    from .data import DeviceCorpus
     from .distill import ProgressiveDistiller
 
     device = _device(args)
@@ -739,6 +788,7 @@ def _cmd_distill(args) -> None:
         raise SystemExit(
             f"--target-steps {args.target_steps} is not reachable from "
             f"--base-steps {args.base_steps} by halving")
+    mesh, device = _mesh(device)
     model = _build_model(cfg, "v", device, task)
     model.load(args.model)
 
@@ -754,11 +804,14 @@ def _cmd_distill(args) -> None:
         print(f"dataset: {len(ds.files)} files, {ds.channels} ch @ "
               f"{ds.sample_rate} Hz, crop {args.crop}, paired embeddings "
               f"from {args.embedding_dir}")
-        batches = _paired_feed(ds, _embedding_table(ds, args.embedding_dir))
+        batches = _rank_rows(
+            _paired_feed(ds, _embedding_table(ds, args.embedding_dir)), mesh)
     else:
-        batches = iter(_load_dataset(args, device))
+        ds = _load_dataset(args, device, mesh)
+        batches = (iter(ds) if isinstance(ds, DeviceCorpus)
+                   else _rank_rows(iter(ds), mesh))
     distiller = ProgressiveDistiller(model, base_steps=args.base_steps,
-                                     learning_rate=args.lr)
+                                     learning_rate=args.lr, mesh=mesh)
     if args.guidance_scale is not None:
         distiller.guidance_stage(batches,
                                  embedding_scale=args.guidance_scale,
@@ -772,6 +825,8 @@ def _cmd_distill(args) -> None:
         print(f"stage done: model now samples at {distiller.steps} steps")
     out = Path(args.out) if args.out else (
         Path(args.model).parent / f"model_distilled{args.target_steps}")
+    if not _rank0(mesh):
+        return
     out.parent.mkdir(parents=True, exist_ok=True)
     model.save(out)
     # `sample --model OUT` reads OUT's sibling config.json; an --out outside

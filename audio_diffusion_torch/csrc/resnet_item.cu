@@ -216,6 +216,108 @@ extern "C" int resnet_item_forward(int dtype, const void* x, const void* gn1s, c
   return (int)cudaErrorInvalidValue;
 }
 
+// The stages of one item as separate entries, for a length split over ranks
+// (parallel/inference.py): the caller gathers the GroupNorm partials of
+// every rank's tiles in rank order between them, and runs each conv over
+// its shard with a neighbour's row on each side. Each is a thin wrapper
+// over the kernels resnet_item_forward launches, so a shard whose length is
+// a multiple of rows_per_tile gets the unsharded item's statistics and
+// rows bit for bit. All return the first CUDA error code, 0 on success.
+
+// partial: f32 [B, ceil(L / rows_per_tile), G, 2], the per-tile sums and
+// sums of squares of x [B, L, C].
+extern "C" int resnet_item_gn_partials(int dtype, const void* x, void* partial, int B, int L,
+                                       int C, int G, int rows_per_tile, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((L + rows_per_tile - 1) / rows_per_tile, B);
+  auto p = static_cast<float*>(partial);
+  if (dtype == 0)
+    gn_partial_kernel<float><<<grid, STATS_THREADS, 0, s>>>((const float*)x, p, L, C, G,
+                                                            rows_per_tile);
+  else if (dtype == 1)
+    gn_partial_kernel<__nv_bfloat16><<<grid, STATS_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)x, p, L, C, G, rows_per_tile);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// stats: f32 [B, G, 2] (mean, rstd) from partial [B, n_tiles, G, 2], the
+// tiles summed in order over the whole length L_total (the count is
+// L_total * C / G, computed as the unsharded item computes it).
+extern "C" int resnet_item_gn_finalize(const void* partial, void* stats, int B, int n_tiles,
+                                       int L_total, int C, int G, float eps, void* stream) {
+  gn_finalize_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<float2*>(stats), n_tiles, G,
+      (float)L_total * (C / G), eps);
+  return (int)cudaGetLastError();
+}
+
+// out = conv3(SiLU(GN(x; stats, gamma, beta)), k) + bias (+ res when
+// residual), over x's L rows, zero outside them; x, res, out [B, L, C].
+// bfloat16: the conv_plan() tile and split as resnet_item_forward takes them
+// (ws: conv_splits * B * L * C f32 when conv_splits > 1).
+extern "C" int resnet_item_conv(int dtype, int residual, const void* x, const void* stats,
+                                const void* gamma, const void* beta, const void* k,
+                                const void* bias, const void* res, void* out, int B, int L,
+                                int C, int G, int conv_bn, int conv_mt, int conv_bk,
+                                int conv_splits, int conv_cps, void* ws, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto st = static_cast<const float2*>(stats);
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    cudaError_t err =
+        residual ? conv3_sm90<kForwardResidual>(conv_bn, conv_mt, conv_bk, (const T*)x, st,
+                                                (const T*)gamma, (const T*)beta, (const T*)k,
+                                                (const T*)bias, (const T*)res, out,
+                                                static_cast<float*>(ws), B, L, C, G,
+                                                conv_splits, conv_cps, s)
+                 : conv3_sm90<kForward>(conv_bn, conv_mt, conv_bk, (const T*)x, st,
+                                        (const T*)gamma, (const T*)beta, (const T*)k,
+                                        (const T*)bias, nullptr, out, static_cast<float*>(ws), B,
+                                        L, C, G, conv_splits, conv_cps, s);
+    return (int)err;
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  using T = float;
+  const dim3 grid((L + BM - 1) / BM, (C + BN - 1) / BN, B);
+  if (residual)
+    conv3_kernel<T, kForwardResidual><<<grid, THREADS, 0, s>>>(
+        (const T*)x, st, (const T*)gamma, (const T*)beta, (const T*)k, (const T*)bias,
+        (const T*)res, (T*)out, L, C, G);
+  else
+    conv3_kernel<T, kForward><<<grid, THREADS, 0, s>>>((const T*)x, st, (const T*)gamma,
+                                                       (const T*)beta, (const T*)k,
+                                                       (const T*)bias, nullptr, (T*)out, L, C, G);
+  return (int)cudaGetLastError();
+}
+
+// out <- y + GN(y; stats, mgs, mgb) * (1 + mods) + modb, y and out [B, L, C]
+// (out may be y); stats f32 [B, G, 2].
+extern "C" int resnet_item_modulate(int dtype, const void* y, void* out, const void* stats,
+                                    const void* mgs, const void* mgb, const void* mods,
+                                    const void* modb, int B, int L, int C, int G, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto st = static_cast<const float2*>(stats);
+  const size_t total = (size_t)B * L * C;
+  const size_t want = (total + 255) / 256;
+  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
+  if (dtype == 0) {
+    using T = float;
+    modulate_kernel<T><<<blocks, 256, 0, s>>>((const T*)y, (T*)out, st, (const T*)mgs,
+                                              (const T*)mgb, (const T*)mods, (const T*)modb, L,
+                                              C, G, total);
+  } else if (dtype == 1) {
+    using T = __nv_bfloat16;
+    modulate_kernel<T><<<blocks, 256, 0, s>>>((const T*)y, (T*)out, st, (const T*)mgs,
+                                              (const T*)mgb, (const T*)mods, (const T*)modb, L,
+                                              C, G, total);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // The bf16 conv's plan (tile bn x 64*mt rows, K chunks of bk, cps chunks per
 // split) against the card: its dynamic shared memory and the CTAs that fit
 // on one SM at once, for the record of how full the card is at each level.

@@ -16,6 +16,11 @@ Usage (drop-in for ``AudioDataset`` in ``Trainer.fit``)::
     dc = DeviceCorpus("wavs/", crop_frames=2**18, batch_size=8)
     trainer.fit(iter(dc), num_steps=30_000)
 
+On a mesh (``DeviceCorpus(..., mesh=mesh)``) every rank holds the corpus on
+its card and draws the global batch's (file, offset) pairs from the same
+generator, then crops only its rows (``shard_batch``'s rows of the global
+batch): ``batch_size`` is the global batch.
+
 The random stream differs from the JAX package's (threefry) and from
 ``AudioDataset``'s (numpy); the distribution is the same. int16 corpora
 yield int16 batches, which the train step dequantizes x / 32768 on the
@@ -28,6 +33,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_rank, axis_size, check_mesh, mesh_device
 from ..utils import resolve_device
 from .loader import AudioDataset, read_batch, wav_read
 
@@ -49,7 +55,8 @@ class DeviceCorpus:
     refuses a corpus whose device footprint would exceed it (default 2 GiB
     — training state needs the rest; use ``AudioDataset`` for bigger sets).
     ``device`` is the CUDA card unless the caller passes another (the CPU
-    for tests). ``mesh`` (multi-GPU placement) is not ported yet.
+    for tests); with a ``mesh`` it is this rank's device. ``batch_size`` is
+    the global batch and must split over the mesh's data ranks.
     """
 
     def __init__(
@@ -66,11 +73,15 @@ class DeviceCorpus:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceCorpus mesh= (a corpus replicated over several GPUs) "
-                "is not ported yet (ROADMAP Queue 1, item 4)")
-        self.device = resolve_device(device)
+        check_mesh(mesh, "DeviceCorpus")
+        data = axis_size(mesh, "data")
+        if batch_size % data:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"data={data} ranks")
+        n, r = batch_size // data, axis_rank(mesh, "data")
+        self._rows = slice(r * n, (r + 1) * n)
+        self.device = (mesh_device(mesh) if mesh is not None
+                       and device is None else resolve_device(device))
         # Reuse AudioDataset's discovery/validation/probe pass: file list,
         # channel resolution, too-short/mismatch skips, PCM16 detection.
         ds = AudioDataset(source, crop_frames=crop_frames,
@@ -115,8 +126,9 @@ class DeviceCorpus:
 
     def batch_at(self, step: int) -> torch.Tensor:
         """The batch for one step index ([B, C, crop] on the device; int16
-        when the corpus is PCM16). Pure in ``(seed, step)``, so any
-        iteration order or resume point reproduces the same data."""
+        when the corpus is PCM16); on a mesh, this rank's rows of it. Pure
+        in ``(seed, step)``, so any iteration order or resume point
+        reproduces the same data."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_step_seed(self.seed, step))
         b = self.batch_size
@@ -128,7 +140,7 @@ class DeviceCorpus:
         max_off = self._max_off[idx]
         off = (u * (max_off + 1).float()).long()
         off = torch.minimum(off, max_off)  # u ~ 1.0 edge
-        flat = self._starts[idx] + off
+        flat = (self._starts[idx] + off)[self._rows]
         windows = self._corpus[:, flat[:, None] + self._window]  # [C, B, T]
         return windows.transpose(0, 1).contiguous()
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from . import noise
+
 __all__ = ["Distribution", "UniformDistribution"]
 
 
@@ -17,12 +19,13 @@ class Distribution:
 
 
 class UniformDistribution(Distribution):
-    """σ ~ U[vmin, vmax), float32, on the generator's device."""
+    """σ ~ U[vmin, vmax), float32, on the generator's device, drawn through
+    ``diffusion/noise.py``."""
 
     def __init__(self, vmin: float = 0.0, vmax: float = 1.0):
         self.vmin, self.vmax = vmin, vmax
 
     def __call__(self, generator: torch.Generator, num_samples: int) -> Tensor:
-        u = torch.rand((num_samples,), generator=generator,
-                       device=generator.device, dtype=torch.float32)
+        u = noise.uniform(generator, (num_samples,), torch.float32,
+                          generator.device)
         return self.vmin + (self.vmax - self.vmin) * u

@@ -15,6 +15,7 @@ import torch
 from torch import Tensor
 
 from ..ops.net import Net
+from ..parallel import comm
 from . import noise as _noise
 from .core import alpha_beta, extend_dim
 from .distributions import Distribution, UniformDistribution
@@ -85,10 +86,13 @@ class VDiffusion(Diffusion):
              x: Tensor, **kwargs) -> Tensor:
         """σ, then the noise, are drawn from ``generator``, which lives on
         x's device; the net draws what it needs after them (CFG's embedding
-        mask, one Bernoulli per batch row)."""
-        sigmas = self.sigma_distribution(generator, x.shape[0])
-        noise = torch.randn(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype)
+        mask, one Bernoulli per batch row). On a data shard
+        (``parallel.comm.data_shard``) each draw takes the global batch's
+        shape and keeps this rank's rows."""
+        n, rows = comm.global_rows(x.shape[0])
+        sigmas = self.sigma_distribution(generator, n)[rows]
+        noise = _noise.normal(generator, (n,) + tuple(x.shape[1:]), x.dtype,
+                              x.device)[rows]
         return v_loss(self.net, params, x, sigmas, noise, self.loss_fn,
                       generator=generator, **kwargs)
 
@@ -133,13 +137,15 @@ class ARVDiffusion(Diffusion):
     def loss(self, params: Dict[str, Tensor], generator: torch.Generator,
              x: Tensor, **kwargs) -> Tensor:
         """σ [B, 1, num_splits] ~ U[0, 1), then the noise, drawn from
-        ``generator``."""
-        b, _, t = x.shape
+        ``generator`` (the global batch's rows on a data shard, as
+        :meth:`VDiffusion.loss`)."""
+        b, c, t = x.shape
         if t != self.length:
             raise ValueError(f"input length {t} must match length "
                              f"{self.length}")
-        sigmas = torch.rand((b, 1, self.num_splits), generator=generator,
-                            device=x.device, dtype=x.dtype)
-        noise = _noise.normal(generator, x.shape, x.dtype, x.device)
+        n, rows = comm.global_rows(b)
+        sigmas = _noise.uniform(generator, (n, 1, self.num_splits), x.dtype,
+                                x.device)[rows]
+        noise = _noise.normal(generator, (n, c, t), x.dtype, x.device)[rows]
         return arv_loss(self.net, params, x, sigmas, noise, self.loss_fn,
                         generator=generator, **kwargs)

@@ -22,6 +22,13 @@ fresh draw (t, σ, ε) goes through ``diffusion/noise.py``. The teacher is
 the model's live parameters; the student trains a clone (the train step
 updates its state in place), which is copied into ``model.params`` when a
 stage ends: a stage that raises partway leaves the model as it was.
+
+Over a mesh (``mesh=``) every batch is this rank's rows of the global batch;
+the teacher's targets are computed on those rows with the global batch's
+draws (each rank keeps its rows, ``parallel.comm.data_shard``), the student
+trains with the mesh's train step, and over a model axis the teacher is
+held as the shards ``param_sharding_rules`` names and gathered for each
+pass.
 """
 from __future__ import annotations
 
@@ -36,7 +43,10 @@ from .diffusion import noise
 from .diffusion.core import alpha_beta, pad_dims
 from .diffusion.vdiffusion import mse_loss
 from .ops.net import cast_inference_params
-from .parallel import make_train_step
+from .parallel import comm, make_train_step
+from .parallel.mesh import (axis_rank, axis_size, check_mesh,
+                            param_sharding_rules, shard_params)
+from .parallel.train_step import Slice, gather_slices
 from .utils import dequant_pcm16
 
 __all__ = ["make_distill_loss", "make_teacher_targets",
@@ -69,24 +79,44 @@ def _two_step_target(net, teacher_params, x_t: Tensor, sig_t: Tensor,
 
 
 def _noised(generator, x: Tensor, sig_t: Tensor) -> Tensor:
-    """x_t = α_t·x + β_t·ε, ε drawn through ``noise.normal``."""
+    """x_t = α_t·x + β_t·ε, ε drawn through ``noise.normal`` (the global
+    batch's rows on a data shard)."""
     a_t, b_t = alpha_beta(pad_dims(sig_t, x.ndim - 1))
-    eps = noise.normal(generator, x.shape, x.dtype, x.device)
+    n, rows = comm.global_rows(x.shape[0])
+    eps = noise.normal(generator, (n,) + tuple(x.shape[1:]), x.dtype,
+                       x.device)[rows]
     return a_t * x + b_t * eps
+
+
+def _on_data_shard(mesh, fn):
+    """``fn`` run on the mesh's data shard; without a mesh, on whatever
+    shard the caller set (a mesh train step's, for the fused loss)."""
+    check_mesh(mesh, "teacher targets")
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with comm.data_shard(axis_rank(mesh, "data"),
+                             axis_size(mesh, "data")):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def make_teacher_targets(net, num_student_steps: int, mesh=None):
     """``targets(teacher_params, generator, x, **cond) -> (x_t, sig_t,
     v_target)``, under ``torch.no_grad()``. An int16 batch is dequantized
     first; t ~ U{1..N} is drawn through ``noise.randint``, then ε through
-    ``noise.normal``; σ_t = t / N in float32."""
-    _no_mesh("make_teacher_targets", mesh)
+    ``noise.normal``; σ_t = t / N in float32. With a ``mesh``, x holds this
+    rank's rows, and each draw takes the global batch's shape and keeps
+    them."""
 
     @torch.no_grad()
     def targets(teacher_params, generator, x: Tensor, **cond):
         x = dequant_pcm16(x)
-        t = noise.randint(generator, 1, num_student_steps + 1,
-                          (x.shape[0],), x.device)
+        n, rows = comm.global_rows(x.shape[0])
+        t = noise.randint(generator, 1, num_student_steps + 1, (n,),
+                          x.device)[rows]
         # A tensor divisor: CUDA computes a division by a Python scalar as
         # a product with its reciprocal.
         sig_t = t.to(torch.float32) / torch.tensor(
@@ -98,7 +128,7 @@ def make_teacher_targets(net, num_student_steps: int, mesh=None):
             net, module, x_t, sig_t, num_student_steps, **cond))
         return x_t, sig_t, v_target
 
-    return targets
+    return _on_data_shard(mesh, targets)
 
 
 def make_guidance_targets(net, embedding_scale: float, mesh=None):
@@ -107,22 +137,23 @@ def make_guidance_targets(net, embedding_scale: float, mesh=None):
     ``torch.no_grad()``: ``v_target`` is the teacher's classifier-free
     guided v at ``embedding_scale`` (one batch-doubled pass). σ ~ U(0, 1)
     is drawn through ``noise.uniform``, then ε: guidance distillation
-    changes what the net predicts, not the step grid."""
-    _no_mesh("make_guidance_targets", mesh)
+    changes what the net predicts, not the step grid. ``mesh`` as in
+    :func:`make_teacher_targets`."""
 
     @torch.no_grad()
     def targets(teacher_params, generator, x: Tensor, *, embedding: Tensor,
                 **cond):
         x = dequant_pcm16(x)
-        sig_t = noise.uniform(generator, (x.shape[0],), torch.float32,
-                              x.device)
+        n, rows = comm.global_rows(x.shape[0])
+        sig_t = noise.uniform(generator, (n,), torch.float32,
+                              x.device)[rows]
         x_t = _noised(generator, x, sig_t)
         v_target = net.apply(teacher_params, x_t, sig_t,
                              embedding=embedding,
                              embedding_scale=embedding_scale, **cond)
         return x_t, sig_t, v_target
 
-    return targets
+    return _on_data_shard(mesh, targets)
 
 
 def make_distill_loss(net, teacher_params, num_student_steps: int,
@@ -141,13 +172,6 @@ def make_distill_loss(net, teacher_params, num_student_steps: int,
     return loss
 
 
-def _no_mesh(what: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} mesh= (multi-GPU distillation) is not ported yet "
-            "(ROADMAP Queue 1, item 4)")
-
-
 class ProgressiveDistiller:
     """Halve a trained model's sampling steps, stage by stage::
 
@@ -161,7 +185,8 @@ class ProgressiveDistiller:
     ``learning_rate``) and trains a student, warm-started from the teacher,
     on the teacher's targets. ``model.params`` take the student's values
     when the stage ends. ``batches`` may yield tensors, numpy arrays, int16
-    PCM, or ``(x, cond)`` tuples whose cond is merged over the stage's.
+    PCM, or ``(x, cond)`` tuples whose cond is merged over the stage's;
+    with a ``mesh``, this rank's rows of each global batch.
     """
 
     def __init__(self, model, base_steps: int,
@@ -169,12 +194,13 @@ class ProgressiveDistiller:
                  = None,
                  learning_rate: float = 1e-4, mesh=None,
                  loss_fn: Optional[Callable] = None):
-        _no_mesh("ProgressiveDistiller", mesh)
+        check_mesh(mesh, "ProgressiveDistiller")
         if base_steps < 2 or base_steps % 2:
             raise ValueError("base_steps must be an even number of sampler "
                              f"steps, got {base_steps}")
         self.model = model
         self.steps = base_steps
+        self.mesh = mesh
         self.optimizer = optimizer or functools.partial(torch.optim.Adam,
                                                         lr=learning_rate)
         self._loss_fn = loss_fn or mse_loss
@@ -184,6 +210,28 @@ class ProgressiveDistiller:
             return torch.as_tensor(x, device=self.model.device)
         return x
 
+    def _placed_teacher(self, teacher: Dict[str, Tensor]):
+        """A function returning the teacher's whole tree: over a model axis
+        the teacher is held as this rank's shards (``shard_params``) and
+        gathered for each call, as the JAX teacher follows
+        ``param_sharding_rules``."""
+        if axis_size(self.mesh, "model") == 1:
+            return lambda: teacher
+        held = shard_params(teacher, self.mesh)
+        specs = param_sharding_rules(teacher, self.mesh)
+        size, index = axis_size(self.mesh, "model"), axis_rank(self.mesh,
+                                                                "model")
+        group = self.mesh.get_group("model")
+        names = [k for k, spec in specs.items() if spec]
+        slices = [Slice(held[k], specs[k].index("model"), index, size, group)
+                  for k in names]
+
+        def whole():
+            full = gather_slices([held[k] for k in names], slices)
+            return {**held, **dict(zip(names, full))}
+
+        return whole
+
     def _run_stage(self, targets, batches, num_train_steps: int,
                    log_fn: Callable[[str], None], log_every: int, tag: str,
                    **cond) -> Dict:
@@ -192,9 +240,9 @@ class ProgressiveDistiller:
         model = self.model
         net, loss_fn = model.net, self._loss_fn
         # The teacher, cast once to the compute dtype as a sampler does.
-        teacher = cast_inference_params(
+        teacher = self._placed_teacher(cast_inference_params(
             {k: v.detach() for k, v in model.split_params(model.params)[0]
-             .items()}, net.compute_dtype)
+             .items()}, net.compute_dtype))
 
         def student_loss(params, generator, x_t, sigmas=None, v_target=None,
                          **cond):
@@ -204,7 +252,8 @@ class ProgressiveDistiller:
             return loss_fn(v_pred, v_target)
 
         init_state, train_step = make_train_step(student_loss,
-                                                 self.optimizer)
+                                                 self.optimizer,
+                                                 mesh=self.mesh)
         student = {k: v.detach().clone().requires_grad_(True)
                    for k, v in model.params.items()}
         state = init_state(student, model.generator)
@@ -218,7 +267,7 @@ class ProgressiveDistiller:
                 batch, batch_cond = batch
                 step_cond = {**cond, **{k: self._on_device(v)
                                         for k, v in batch_cond.items()}}
-            x_t, sig_t, v_target = targets(teacher, model.generator,
+            x_t, sig_t, v_target = targets(teacher(), model.generator,
                                            self._on_device(batch),
                                            **step_cond)
             state, metrics = train_step(state, x_t, sigmas=sig_t,
@@ -240,7 +289,8 @@ class ProgressiveDistiller:
             raise ValueError(f"cannot halve an odd step count ({self.steps})")
         student_steps = self.steps // 2
         metrics = self._run_stage(
-            make_teacher_targets(self.model.net, student_steps), batches,
+            make_teacher_targets(self.model.net, student_steps, self.mesh),
+            batches,
             num_train_steps, log_fn, log_every,
             tag=f"{self.steps}->{student_steps}", **cond)
         self.steps = student_steps
@@ -256,6 +306,7 @@ class ProgressiveDistiller:
         the same ``embedding``. ``batches`` must carry the conditioning:
         ``(x, {"embedding": ...})`` tuples, or a fixed ``embedding=``."""
         return self._run_stage(
-            make_guidance_targets(self.model.net, embedding_scale), batches,
+            make_guidance_targets(self.model.net, embedding_scale, self.mesh),
+            batches,
             num_train_steps, log_fn, log_every,
             tag=f"guidance(w={embedding_scale:g})", **cond)

@@ -32,10 +32,11 @@ and take that many times as long to export, save and load (``PERF.md``).
   export. Loading fails loudly on another device type, on a JAX artifact,
   and on a mismatched shape or step count.
 
-Loading needs the registered operator of the fused resnet item (the
-program calls ``torch.ops.audio_diffusion_torch.fused_resnet_item`` on the
-card), so this module imports ``ops.kernels.resnet``: the operator library,
-not the net's definition. It casts the parameters to the compute dtype
+Loading needs the registered operators of the fused resnet item and of
+the plain GroupNorm's statistics (the program calls
+``torch.ops.audio_diffusion_torch.fused_resnet_item`` and ``.group_stats``
+on the card), so this module imports ``ops.kernels.resnet``: the operator
+library, not the net's definition. It casts the parameters to the compute dtype
 with ``ops.net.cast_inference_params``, once per sample, as the live
 sampler does. Not AOTInductor: its compiled kernels would not be the
 port's, and the artifact must give the live model's bits.

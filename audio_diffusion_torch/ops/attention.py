@@ -8,6 +8,11 @@ type, then the product with the values. ``scaled_dot_product_attention`` is
 not used, so the rounding points match the JAX package's. Cross-attention
 takes its keys and values from a context [B, N, context_features] (the
 text embedding), with no key-padding mask, as in the JAX package.
+
+Under a length shard (``parallel.comm.length_shard``) an attention item
+gathers its input's whole sequence, runs unchanged on every rank and keeps
+its rows: the products keep the unsharded shapes, so a library that picks
+its algorithm by shape computes the same bits.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from ..parallel import comm
 from .layers import Dense, LayerNorm
 
 __all__ = ["Attention", "FeedForward", "AttentionItem", "CrossAttentionItem"]
@@ -102,6 +108,13 @@ class AttentionItem(nn.Module):
         self.FeedForward_0 = FeedForward(features, **common)
 
     def forward(self, x: Tensor, context: Optional[Tensor] = None) -> Tensor:
+        shard = comm.current_length_shard()
+        if shard is not None:
+            length = x.shape[1]
+            whole = comm.all_gather_rows(x, shard.group, dim=1)
+            with comm.length_shard(None):
+                out = self.forward(whole, context)
+            return out[:, shard.rank * length:(shard.rank + 1) * length]
         h = self.LayerNorm_0(x)
         if context is not None:
             context = context.to(h.dtype)

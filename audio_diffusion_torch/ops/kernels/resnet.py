@@ -27,6 +27,22 @@ operator's dispatch added about 48 µs of host time per item, 2 ms per
 host-bound sampling step, more than the step's run-to-run spread
 (``PERF.md``, PR 10). Either way the kernel launches in
 ``_launch_forward``, which counts ``fused_resnet_item.launches``.
+
+Under ``parallel.comm.length_shard`` (length-sharded sampling) x is this
+rank's rows of a length split over a group, and the item runs in stages
+with collectives between them (:func:`_launch_sharded`, and on the CPU
+:func:`resnet_item_sharded_reference`): each GroupNorm gathers every rank's
+per-tile partial sums in rank order and finalizes them over the whole
+length, and each conv runs over the shard with a neighbour's row on each
+side (zero padding only at the global ends), with the tile and split-K of
+the unsharded item's shape. Where the shard's length is a multiple of the
+statistics tile (``8192 // C`` rows) the sums are the unsharded item's, in
+its order, so its statistics and rows are the unsharded kernel's bits; on
+the card a shard that is not raises. The plain version sums each shard's
+own tiles (the last one short), which is another order than the unsharded
+item's where a shard is not a multiple of the tile: the CPU tests' small
+nets have shards shorter than a tile. Length-sharded training is not in
+the JAX package, and the sharded item takes no gradient.
 """
 from __future__ import annotations
 
@@ -38,10 +54,13 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from ...parallel import comm
 from .build import load_library
 
-__all__ = ["fused_resnet_item", "resnet_item_reference", "conv_plan",
-           "conv_occupancy", "wgrad_plan", "backward_occupancy"]
+__all__ = ["fused_resnet_item", "resnet_item_reference", "group_stats",
+           "resnet_item_sharded_reference", "gn_partials_reference",
+           "gn_finalize_reference", "conv_plan", "conv_occupancy",
+           "wgrad_plan", "backward_occupancy"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements each CTA of the statistics pass sums (sets its L tile).
@@ -94,6 +113,31 @@ def _conv3(h: Tensor, k: Tensor) -> Tensor:
             + hp[:, 2:length + 2] @ k[2])
 
 
+def _item_plain(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb, mgs,
+                mgb, use_modulation, stats, conv) -> Tensor:
+    """The item's math with the Pallas body's rounding points, given
+    ``stats(h) -> (mean, rstd)`` [B, 1, C] of f32 ``h`` and ``conv(a, k)``,
+    the f32 k=3 conv of the activated input ``a``."""
+    dtype = x.dtype
+
+    def gn_silu(h, s, b):
+        mean, rstd = stats(h)
+        n = (h - mean) * rstd * s.float() + b.float()
+        return (n * torch.sigmoid(n)).to(dtype)
+
+    xf = x.float()
+    h = (conv(gn_silu(xf, gn1s, gn1b), k1) + c1b.float()).to(dtype)
+    h = conv(gn_silu(h.float(), gn2s, gn2b), k2) + c2b.float()
+    y = (xf + h).to(dtype)
+    if use_modulation:
+        yf = y.float()
+        mean, rstd = stats(yf)
+        hm = (yf - mean) * rstd * mgs.float() + mgb.float()
+        y = (yf + hm * (1.0 + mods.float()[:, None])
+             + modb.float()[:, None]).to(dtype)
+    return y
+
+
 def resnet_item_reference(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor,
                           c1b: Tensor, gn2s: Tensor, gn2b: Tensor, k2: Tensor,
                           c2b: Tensor, mods: Optional[Tensor] = None,
@@ -106,24 +150,74 @@ def resnet_item_reference(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor,
     (resnet.py:94-116 of the JAX package): the activated conv inputs, conv 1's
     output and the item's output are rounded to ``x.dtype``; everything else
     is f32. x [B, L, C]; k [3, C, C]; vectors [C]; mods/modb [B, C]."""
-    dtype = x.dtype
+    return _item_plain(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods,
+                       modb, mgs, mgb, use_modulation,
+                       lambda h: _group_stats(h, groups, eps), _conv3)
 
-    def gn_silu(h, s, b):
-        mean, rstd = _group_stats(h, groups, eps)
-        n = (h - mean) * rstd * s.float() + b.float()
-        return (n * torch.sigmoid(n)).to(dtype)
 
-    xf = x.float()
-    h = (_conv3(gn_silu(xf, gn1s, gn1b), k1) + c1b.float()).to(dtype)
-    h = _conv3(gn_silu(h.float(), gn2s, gn2b), k2) + c2b.float()
-    y = (xf + h).to(dtype)
-    if use_modulation:
-        yf = y.float()
-        mean, rstd = _group_stats(yf, groups, eps)
-        hm = (yf - mean) * rstd * mgs.float() + mgb.float()
-        y = (yf + hm * (1.0 + mods.float()[:, None])
-             + modb.float()[:, None]).to(dtype)
-    return y
+def gn_partials_reference(h: Tensor, groups: int) -> Tensor:
+    """Plain ``gn_partial_kernel``: f32 [B, n_tiles, G, 2], the sum and the
+    sum of squares of ``h`` [B, L, C] over each tile of ``8192 // C`` rows
+    and each group (the last tile may be short)."""
+    b, length, c = h.shape
+    rows, n_tiles = _stats_tiles(length, c)
+    hf = F.pad(h.float(), (0, 0, 0, n_tiles * rows - length))
+    hg = hf.reshape(b, n_tiles, rows, groups, c // groups)
+    return torch.stack([hg.sum(dim=(2, 4)), hg.square().sum(dim=(2, 4))], -1)
+
+
+def gn_finalize_reference(partial: Tensor, length: int, channels: int,
+                          eps: float) -> Tensor:
+    """Plain ``gn_finalize_kernel``: f32 [B, G, 2] (mean, rstd) from the
+    partials of every tile of a length of ``length`` rows, summed over the
+    tiles in float64."""
+    groups = partial.shape[2]
+    count = float(torch.tensor(float(length), dtype=torch.float32)
+                  * (channels // groups))
+    total = partial.double().sum(dim=1)
+    mean = (total[..., 0] / count).float()
+    var = torch.clamp((total[..., 1] / count).float() - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + eps)], -1)
+
+
+def _check_shard_tiles(length: int, channels: int) -> None:
+    rows, _ = _stats_tiles(length, channels)
+    if length % rows:
+        raise ValueError(
+            f"fused_resnet_item: a length shard of {length} rows at {channels} "
+            f"channels is not a multiple of the statistics tile ({rows} "
+            "rows), so its GroupNorm sums would not be the unsharded item's")
+
+
+def resnet_item_sharded_reference(x: Tensor, gn1s, gn1b, k1, c1b, gn2s, gn2b,
+                                  k2, c2b, mods=None, modb=None, mgs=None,
+                                  mgb=None, *, shard, groups: int = 8,
+                                  eps: float = 1e-5,
+                                  use_modulation: bool = True) -> Tensor:
+    """Plain version of the sharded item: x is ``shard``'s rows of a length
+    split over ``shard.group`` in rank order. Each GroupNorm gathers every
+    rank's tile partials (:func:`gn_partials_reference`) and finalizes them
+    over the whole length (:func:`gn_finalize_reference`); each conv reads
+    a neighbour's activated row on each side (``comm.exchange_halo``). Each
+    rank sums its own tiles, the last one short where the shard is not a
+    multiple of the tile."""
+    b, length, c = x.shape
+
+    def stats(h):
+        # Every rank's tiles in rank order: the unsharded tiles.
+        every = comm.all_gather_rows(gn_partials_reference(h, groups),
+                                     shard.group, dim=1)
+        st = gn_finalize_reference(every, length * shard.size, c, eps)
+        per = c // groups
+        return (st[..., 0].repeat_interleave(per, 1)[:, None],
+                st[..., 1].repeat_interleave(per, 1)[:, None])
+
+    def conv(a, k):
+        ext, off = comm.pad_halo(a, *comm.exchange_halo(a, shard.group))
+        return _conv3(ext, k)[:, off:off + length]
+
+    return _item_plain(x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods,
+                       modb, mgs, mgb, use_modulation, stats, conv)
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,6 +239,23 @@ def _backward_kernel():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_kernels():
+    """The staged entries of ``csrc/resnet_item.cu`` (the sharded item)."""
+    lib = load_library("resnet_item")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = dict(partials=lib.resnet_item_gn_partials,
+               finalize=lib.resnet_item_gn_finalize,
+               conv=lib.resnet_item_conv, modulate=lib.resnet_item_modulate)
+    fns["partials"].argtypes = [I, P, P] + [I] * 5 + [P]
+    fns["finalize"].argtypes = [P, P] + [I] * 5 + [ctypes.c_float, P]
+    fns["conv"].argtypes = [I, I] + [P] * 8 + [I] * 9 + [P, P]
+    fns["modulate"].argtypes = [I] + [P] * 7 + [I] * 4 + [P]
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
 
 
 def _occupancy(fn, *plan: int):
@@ -396,6 +507,124 @@ def _launch_forward(x, params, groups, eps, use_modulation, keep):
     return out, h, y, stats
 
 
+def group_stats(x: Tensor, groups: int, eps: float, shard=None) -> Tensor:
+    """GroupNorm statistics of a CUDA tensor x [B, L, C] by the item's own
+    statistics kernels: f32 [B, G, 2] (mean, rstd), the one-pass moments
+    of tiles of ``8192 // C`` rows summed in double in tile order. Under a
+    length ``shard`` every rank's tile partials are gathered in rank order
+    first, so the statistics are the unsharded ones, bit for bit (the shard
+    must be a multiple of the tile). No gradient flows through them."""
+    b, length, c = x.shape
+    if shard is not None:
+        _check_shard_tiles(length, c)
+    rows_per_tile, n_tiles = _stats_tiles(length, c)
+    x = x.contiguous()
+    fns = _stage_kernels()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, n_tiles, groups, 2), **f32)
+    stats = torch.empty((b, groups, 2), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fns["partials"](_DTYPE_CODES[x.dtype], _ptr(x), _ptr(partial), b,
+                              length, c, groups, rows_per_tile, stream)
+        size = 1
+        if shard is not None:
+            partial = comm.all_gather_rows(partial, shard.group,
+                                           dim=1).contiguous()
+            size = shard.size
+        err = err or fns["finalize"](_ptr(partial), _ptr(stats), b,
+                                     partial.shape[1], length * size, c,
+                                     groups, eps, stream)
+    if err:
+        raise RuntimeError(f"group_stats: CUDA error {err} at launch")
+    return stats
+
+
+def _launch_sharded(x, params, groups, eps, use_modulation, shard,
+                    keep_stats: bool = False):
+    """The item on this rank's rows of a length split over ``shard.group``,
+    as the staged entries: per GroupNorm, the shard's tile partials, one
+    all-gather of every rank's (with the shard's first and last rows, for
+    the next conv's halo), and the finalize over the whole length; each
+    conv over ``[left row; shard; right row]`` with the unsharded item's
+    plan, its edge rows dropped. Three gathers per item (two without
+    modulation). Returns the item's output, and with ``keep_stats`` the
+    three GroupNorm statistics [3, B, G, 2] as the unsharded launch keeps
+    them (zeros for a third without modulation)."""
+    (gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb, mgs, mgb) = params
+    b, length, c = x.shape
+    _check_shard_tiles(length, c)
+    rows_per_tile, n_tiles = _stats_tiles(length, c)
+    total = length * shard.size
+    code = _DTYPE_CODES[x.dtype]
+    fns = _stage_kernels()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    plan, ws = (0, 0, 0, 1, 1), None
+    if x.dtype == torch.bfloat16:
+        p = conv_plan(b, total, c, _sm_count(x.device.index))
+        plan = (p["bn"], p["mt"], p["bk"], p["splits"], p["cps"])
+        if p["splits"] > 1:
+            ws = torch.empty(p["splits"] * b * (length + 2) * c, **f32)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"fused_resnet_item ({what}): CUDA error "
+                               f"{err} at launch")
+
+    def stats_and_halo(t, halo: bool):
+        partial = torch.empty((b, n_tiles, groups, 2), **f32)
+        check(fns["partials"](code, _ptr(t), _ptr(partial), b, length, c,
+                              groups, rows_per_tile, stream), "partials")
+        payload = [partial.reshape(-1)]
+        if halo:
+            payload += [t[:, 0].float().reshape(-1),
+                        t[:, -1].float().reshape(-1)]
+        every = comm.all_gather_rows(torch.cat(payload)[None], shard.group)
+        n = partial.numel()
+        tiles = every[:, :n].reshape(shard.size, b, n_tiles, groups, 2)
+        tiles = tiles.transpose(0, 1).reshape(
+            b, shard.size * n_tiles, groups, 2).contiguous()
+        stats = torch.empty((b, groups, 2), **f32)
+        check(fns["finalize"](_ptr(tiles), _ptr(stats), b,
+                              shard.size * n_tiles, total, c, groups, eps,
+                              stream), "finalize")
+        if not halo:
+            return stats, None
+        edges = every[:, n:].reshape(shard.size, 2, b, 1, c)
+        left = edges[shard.rank - 1, 1] if shard.rank > 0 else None
+        right = (edges[shard.rank + 1, 0]
+                 if shard.rank < shard.size - 1 else None)
+        return stats, comm.pad_halo(t, left, right)
+
+    def conv(ext, stats, gs, gb, k, bias, res):
+        out = torch.empty_like(ext)
+        check(fns["conv"](code, int(res is not None), _ptr(ext), _ptr(stats),
+                          _ptr(gs), _ptr(gb), _ptr(k), _ptr(bias), _ptr(res),
+                          _ptr(out), b, ext.shape[1], c, groups, *plan,
+                          _ptr(ws), stream), "conv")
+        return out
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stats1, (xe, off) = stats_and_halo(x, True)
+        h = conv(xe, stats1, gn1s, gn1b, k1, c1b, None)[
+            :, off:off + length].contiguous()
+        stats2, (he, _) = stats_and_halo(h, True)
+        y = conv(he, stats2, gn2s, gn2b, k2, c2b, xe)[
+            :, off:off + length].contiguous()
+        stats3 = torch.zeros_like(stats1)
+        if use_modulation:
+            stats3, _ = stats_and_halo(y, False)
+            check(fns["modulate"](code, _ptr(y), _ptr(y), _ptr(stats3),
+                                  _ptr(mgs), _ptr(mgb), _ptr(mods),
+                                  _ptr(modb), b, length, c, groups, stream),
+                  "modulate")
+    fused_resnet_item.launches += 1
+    if keep_stats:
+        return y, torch.stack([stats1, stats2, stats3])
+    return y
+
+
 class _FusedResnetItem(torch.autograd.Function):
     """The item on a CUDA tensor with its hand-written backward. Inputs were
     checked by :func:`fused_resnet_item`."""
@@ -464,8 +693,21 @@ def fused_resnet_item(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor,
     ``use_modulation``): on the CPU through the plain version, on a CUDA
     tensor through the backward kernels. ``fused_resnet_item.launches``
     counts forward launches and ``.backward_launches`` backward ones, one
-    per item."""
+    per item (per item and rank under a length shard)."""
+    shard = comm.current_length_shard()
+    if shard is not None and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods,
+                      modb, mgs, mgb)):
+        raise NotImplementedError(
+            "fused_resnet_item: a length-sharded item takes no gradient "
+            "(length-sharded training is not in the JAX package)")
     if x.device.type == "cpu":
+        if shard is not None:
+            return resnet_item_sharded_reference(
+                x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb, mgs,
+                mgb, shard=shard, groups=groups, eps=eps,
+                use_modulation=use_modulation)
         return resnet_item_reference(
             x, gn1s, gn1b, k1, c1b, gn2s, gn2b, k2, c2b, mods, modb, mgs, mgb,
             groups=groups, eps=eps, use_modulation=use_modulation)
@@ -502,6 +744,8 @@ def fused_resnet_item(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor,
             raise ValueError(f"fused_resnet_item: {name} is not contiguous")
         needs_grad = needs_grad or t.requires_grad
     params = tuple(args[n] if n in shapes else None for n in args)
+    if shard is not None:
+        return _launch_sharded(x, params, groups, eps, use_modulation, shard)
     if needs_grad and torch.is_grad_enabled():
         return _FusedResnetItem.apply(groups, eps, use_modulation, x, *params)
     if torch.compiler.is_compiling():
@@ -533,3 +777,16 @@ def _item_op(x: Tensor, gn1s: Tensor, gn1b: Tensor, k1: Tensor, c1b: Tensor,
 @_item_op.register_fake
 def _item_op_fake(x, *args):
     return torch.empty_like(x)
+
+
+@torch.library.custom_op("audio_diffusion_torch::group_stats",
+                         mutates_args=())
+def group_stats_op(x: Tensor, groups: int, eps: float) -> Tensor:
+    """:func:`group_stats` (unsharded) as an operator, which a trace
+    (``torch.export``) records as one node, as it records the item."""
+    return group_stats(x, groups, eps)
+
+
+@group_stats_op.register_fake
+def _group_stats_op_fake(x, groups, eps):
+    return x.new_empty((x.shape[0], groups, 2), dtype=torch.float32)

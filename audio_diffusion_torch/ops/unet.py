@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from ..diffusion import noise
+from ..parallel import comm
 from .attention import AttentionItem, CrossAttentionItem
 from .kernels import resnet as resnet_kernel
 from .layers import Dense, lecun_normal_, new_param
@@ -99,11 +101,34 @@ def group_norm(x: Tensor, groups: int, scale: Tensor, bias: Tensor,
                eps: float = 1e-5) -> Tensor:
     """GroupNorm on [B, L, C]: f32 one-pass moments E[x²] − E[x]² per
     (batch, group), variance clamped at 0; the normalized value is cast to
-    x's dtype before the scale and bias, as the JAX lax path does."""
+    x's dtype before the scale and bias, as the JAX lax path does. Under a
+    length shard the moments are those of the whole length. A CUDA tensor
+    that needs no gradient (sampling) takes them from the fused item's
+    statistics kernels (``resnet_kernel.group_stats``: tile sums in a fixed
+    order, every rank's gathered in rank order under a shard, so a sharded
+    sample keeps the unsharded bits; a trace records them as the operator
+    ``group_stats_op``); otherwise each rank's sums are added over the
+    ranks in rank order."""
     b, l, c = x.shape
     xg = x.reshape(b, l, groups, c // groups).float()
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    meansq = xg.square().mean(dim=(1, 3), keepdim=True)
+    shard = comm.current_length_shard()
+    if x.is_cuda and not (torch.is_grad_enabled() and x.requires_grad):
+        stats = (resnet_kernel.group_stats_op(x, groups, eps)
+                 if torch.compiler.is_compiling()
+                 else resnet_kernel.group_stats(x, groups, eps, shard))
+        mean = stats[..., 0].reshape(b, 1, groups, 1)
+        rstd = stats[..., 1].reshape(b, 1, groups, 1)
+        xn = ((xg - mean) * rstd).reshape(b, l, c)
+        return xn.to(x.dtype) * scale + bias
+    if shard is None:
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        meansq = xg.square().mean(dim=(1, 3), keepdim=True)
+    else:
+        sums = torch.stack([xg.sum(dim=(1, 3), keepdim=True),
+                            xg.square().sum(dim=(1, 3), keepdim=True)])
+        sums = comm.all_reduce_sum(sums, shard.group)
+        count = l * shard.size * (c // groups)
+        mean, meansq = sums[0] / count, sums[1] / count
     rstd = torch.rsqrt(torch.clamp(meansq - mean * mean, min=0.0) + eps)
     xn = ((xg - mean) * rstd).reshape(b, l, c)
     return xn.to(x.dtype) * scale + bias
@@ -111,11 +136,18 @@ def group_norm(x: Tensor, groups: int, scale: Tensor, bias: Tensor,
 
 def conv3(x: Tensor, kernel: Tensor, bias: Tensor) -> Tensor:
     """k=3, padding-1 conv of [B, L, Cin] with [3, Cin, Cout] as one product
-    over the three taps; tap t reads position l − 1 + t."""
+    over the three taps; tap t reads position l − 1 + t. Under a length
+    shard the rows at the shard's edges read the neighbours' rows, and the
+    zero padding is at the global ends only."""
     length = x.shape[1]
+    shard = comm.current_length_shard()
+    off = 0
+    if shard is not None:
+        x, off = comm.pad_halo(x, *comm.exchange_halo(x, shard.group))
     xp = F.pad(x, (0, 0, 1, 1))
-    taps = torch.cat([xp[:, t:t + length] for t in range(3)], dim=-1)
-    return taps @ kernel.reshape(-1, kernel.shape[-1]) + bias
+    taps = torch.cat([xp[:, t:t + x.shape[1]] for t in range(3)], dim=-1)
+    out = taps @ kernel.reshape(-1, kernel.shape[-1]) + bias
+    return out[:, off:off + length]
 
 
 def _check_unused_kwargs(unused: dict) -> None:
@@ -616,9 +648,12 @@ class ClassifierFreeGuidanceWrapper(nn.Module):
     @staticmethod
     def draw_mask(batch: int, proba: float, generator: torch.Generator,
                   device) -> Tensor:
-        """[B, 1, 1] booleans, True with probability ``proba``."""
-        return torch.rand((batch, 1, 1), generator=generator,
-                          device=device) < proba
+        """[B, 1, 1] booleans, True with probability ``proba``, drawn
+        through ``diffusion/noise.py`` (the global batch's rows on a data
+        shard, as the loss draws)."""
+        n, rows = comm.global_rows(batch)
+        return noise.uniform(generator, (n, 1, 1), torch.float32,
+                             device)[rows] < proba
 
     def forward(self, x: Tensor, sigmas: Optional[Tensor] = None, *,
                 embedding: Optional[Tensor] = None,

@@ -10,7 +10,11 @@
   time, with a host-side logger;
 - a ``torch.profiler`` trace over a step window;
 - optional NaN debugging: ``FloatingPointError`` at the first non-finite
-  loss or gradient norm.
+  loss or gradient norm;
+- a mesh (``parallel.create_mesh``): the data-parallel, ZeRO-1 or
+  model-sharded step of ``make_train_step``, one checkpoint of the whole
+  state written by rank 0 after the shards are gathered (the other ranks
+  wait at a barrier), restored onto any mesh, and logs on rank 0.
 
 The default optimizer is the JAX Trainer's ``optax.chain(
 clip_by_global_norm(max_grad_norm), adamw(schedule, weight_decay))``:
@@ -32,9 +36,11 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
-from ..parallel.train_step import TrainState, make_train_step
+from ..parallel.mesh import check_mesh
+from ..parallel.train_step import TrainState, gather_slices, make_train_step
 
 __all__ = ["Trainer", "TrainerConfig", "ClipAdamW", "lr_schedule"]
 
@@ -118,6 +124,11 @@ class ClipAdamW(torch.optim.Optimizer):
     Per parameter the state holds ``exp_avg``, ``exp_avg_sq`` (beside the
     parameter) and ``step`` (a host tensor), as ``torch.optim.Adam`` names
     them.
+
+    A sharded train step (ZeRO-1, the model axis) hands it slices of the
+    parameters; it then sets ``grad_norm`` before each update, the global
+    norm of the full gradients, which the clip uses in place of the norm of
+    the slices.
     """
 
     def __init__(self, params, schedule: Callable[[int], float],
@@ -129,6 +140,7 @@ class ClipAdamW(torch.optim.Optimizer):
         self.max_grad_norm = max_grad_norm
         self.betas = betas
         self.eps = eps
+        self.grad_norm: Optional[Tensor] = None
 
     def updates(self) -> int:
         """Updates made so far (Adam's count, which stays on the host)."""
@@ -140,8 +152,10 @@ class ClipAdamW(torch.optim.Optimizer):
         return 0
 
     def _clip(self, grads) -> None:
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        norm, self.grad_norm = self.grad_norm, None
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         keep = norm < self.max_grad_norm
         one = torch.ones_like(norm)
         # g / 1 * 1 is g exactly; else (g / ‖g‖) · max_norm, as optax.
@@ -245,16 +259,16 @@ class Trainer:
     ``optimizer`` is a factory from the list of parameters to a
     ``torch.optim.Optimizer`` (as ``make_train_step`` takes it); by default
     :class:`ClipAdamW` with the config's schedule, clipping and weight
-    decay. ``mesh`` (multi-GPU training) is not ported yet.
+    decay. With a ``mesh`` every rank runs the same calls: ``fit`` takes
+    this rank's rows of each global batch (``parallel.shard_batch``,
+    ``global_batch``, ``DeviceCorpus(mesh=)``), and saving and restoring
+    are collective.
     """
 
     def __init__(self, model, config: Optional[TrainerConfig] = None,
                  mesh=None, optimizer: Optional[Callable] = None,
                  log_fn: Callable[[str], None] = print):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer mesh= (multi-GPU training) is not ported yet "
-                "(ROADMAP Queue 1, item 4)")
+        check_mesh(mesh, "Trainer")
         self.model = model
         self.config = config or TrainerConfig()
         self.mesh = mesh
@@ -267,8 +281,9 @@ class Trainer:
                 max_grad_norm=cfg.max_grad_norm)
         self.optimizer = optimizer
         self._init_state_fn, self.train_step = make_train_step(
-            model.loss, optimizer, ema_decay=cfg.ema_decay,
+            model.loss, optimizer, mesh=mesh, ema_decay=cfg.ema_decay,
             accum_steps=cfg.accum_steps, steps_per_call=cfg.steps_per_call)
+        self._rank0 = mesh is None or dist.get_rank() == 0
         self._tail_step_cached = None  # single steps for the remainder
         self.state: Optional[TrainState] = None
         self._ckpt_dir = None
@@ -301,10 +316,26 @@ class Trainer:
         s = self.state
         assert s is not None, "no train state (init_state or fit first)"
         opt = s.optimizer.state
-        host = _to_host({
-            "step": s.step, "params": s.params, "ema": s.ema,
-            "optimizer": {n: dict(opt[p]) for n, p in s.params.items()
-                          if opt.get(p)}})
+        optimizer = {n: dict(opt[s.optimizer_leaf(n)]) for n in s.params
+                     if opt.get(s.optimizer_leaf(n))}
+        ema = None if s.ema is None else dict(s.ema)
+        # Sharded leaves: their moments (the state shaped like the slice)
+        # and, over the model axis, their EMA, gathered whole.
+        parts, slices, dest = [], [], []
+        for name, sl in s.shards.items():
+            for key, v in optimizer.get(name, {}).items():
+                if torch.is_tensor(v) and v.shape == sl.master.shape:
+                    parts.append(v)
+                    slices.append(sl)
+                    dest.append((optimizer[name], key))
+            if ema is not None and s.ema_sharded:
+                parts.append(ema[name])
+                slices.append(sl)
+                dest.append((ema, name))
+        for (d, key), full in zip(dest, gather_slices(parts, slices)):
+            d[key] = full
+        host = _to_host({"step": s.step, "params": s.params, "ema": ema,
+                         "optimizer": optimizer})
         host["step"] = int(host["step"])
         host["generator"] = s.generator.get_state()
         return host
@@ -324,13 +355,24 @@ class Trainer:
                              f"{sorted(unknown)[:5]}")
         s.optimizer.state.clear()
         for name, p in s.params.items():
+            sl = s.shards.get(name)
+            if sl is not None:
+                with torch.no_grad():
+                    sl.master.copy_(sl.cut(p))
             if name in opt:
                 # Adam keeps its count on the host, the moments beside the
-                # parameter.
-                s.optimizer.state[p] = {
-                    k: (v.clone() if k == "step" else
-                        v.to(p.device, copy=True)) if torch.is_tensor(v)
-                    else v for k, v in opt[name].items()}
+                # parameter; a sharded leaf takes its slice of them.
+                def place(k, v):
+                    if not torch.is_tensor(v):
+                        return v
+                    if k == "step":
+                        return v.clone()
+                    v = v.to(p.device, copy=True)
+                    if sl is not None and v.shape == p.shape:
+                        v = sl.cut(v)
+                    return v
+                s.optimizer.state[s.optimizer_leaf(name)] = {
+                    k: place(k, v) for k, v in opt[name].items()}
         s.step.fill_(int(content["step"]))
         if content.get("generator") is not None:
             s.generator.set_state(content["generator"])
@@ -338,7 +380,11 @@ class Trainer:
             raise ValueError("checkpoint ema: the checkpoint and the "
                              "trainer disagree on whether EMA is on")
         if s.ema is not None:
-            _load_into(s.ema, content["ema"], "ema")
+            saved = content["ema"]
+            if s.ema_sharded:
+                saved = {k: (s.shards[k].cut(v) if k in s.shards else v)
+                         for k, v in saved.items()}
+            _load_into(s.ema, saved, "ema")
 
     def save_checkpoint(self, step: Optional[int] = None,
                         wait: bool = False) -> None:
@@ -348,12 +394,19 @@ class Trainer:
         under a temporary name in ``checkpoint_dir`` and renames it into
         place, then keeps the ``max_checkpoints`` newest. One save is in
         flight at a time; ``fit`` waits for the last on exit. ``wait=True``
-        blocks until this save is durable.
+        blocks until this save is durable. With a mesh the state is
+        gathered from every rank, rank 0 writes it, and every rank returns
+        once it is durable.
         """
         assert self._ckpt_dir is not None, "no checkpoint_dir configured"
         self.wait_for_save()
         content = self.state_dict()
         step = content["step"] if step is None else int(step)
+        if self.mesh is not None:
+            if self._rank0:
+                self._write(step, content)
+            dist.barrier()
+            return
 
         def write():
             try:
@@ -419,17 +472,25 @@ class Trainer:
 
     @property
     def ema_params(self) -> Dict[str, Tensor]:
-        """EMA parameters (the live parameters when EMA is disabled)."""
-        assert self.state is not None
-        return self.state.ema if self.state.ema is not None else (
-            self.state.params)
+        """EMA parameters (the live parameters when EMA is disabled), whole:
+        over the model axis the shards are gathered (a collective)."""
+        s = self.state
+        assert s is not None
+        if s.ema is None:
+            return s.params
+        if not s.ema_sharded:
+            return s.ema
+        names = list(s.shards)
+        full = gather_slices([s.ema[k] for k in names],
+                             [s.shards[k] for k in names])
+        return {**s.ema, **dict(zip(names, full))}
 
     # ----------------------------------------------------------------- fit
     def _tail_step(self, state, batch, **cond):
         """Single steps for the num_steps % steps_per_call tail."""
         if self._tail_step_cached is None:
             _, self._tail_step_cached = make_train_step(
-                self.model.loss, self.optimizer,
+                self.model.loss, self.optimizer, mesh=self.mesh,
                 ema_decay=self.config.ema_decay,
                 accum_steps=self.config.accum_steps)
         return self._tail_step_cached(state, batch, **cond)
@@ -529,7 +590,8 @@ class Trainer:
                     self._stop_profiler(profiler, profile_from, step)
                     profiler = None
 
-                if step % cfg.log_every < kk or i == num_calls + tail - 1:
+                if self._rank0 and (step % cfg.log_every < kk
+                                    or i == num_calls + tail - 1):
                     loss = float(metrics["loss"])
                     gnorm = float(metrics["grad_norm"])
                     now = time.perf_counter()

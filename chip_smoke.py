@@ -118,6 +118,26 @@ in each level's first item: 1,800 launches per 50-step sample and 36 + 36
 per train step (``first_item_launches``, ``first_item_train_launches``:
 the six width-changing items take the plain path by geometry), the six
 items' device time per pass beside the fused items'.
+Multi-GPU: ``create_mesh()`` under NCCL at world size 1 in this process
+(``nccl_world1``: the small net's mesh step bit-equal to the plain step);
+then two ranks, child processes of this script that share the card over
+gloo (each collective staged through the host; over NCCL too where there
+are two cards), after the small references: the staged, length-sharded
+item at the nine level shapes, bf16 and f32, against its plain version
+and bit for bit against the unsharded kernel (``kernel_sharded_vs_plain``,
+with each level's plan, the staged item's time per rank and the halo
+copies' device time), and the small net's DP, ZeRO-1 and model-axis steps
+and a 4-step length-sharded sample against one rank
+(``multi_rank_small_reference``); at the end, the 50-step flagship sample
+with the length split over the ranks against the main path's sample
+(``length_sharded_flagship``: 2,100 launches per rank, collectives, ms
+per step and peak per rank, the first module that diverges from the
+whole pass) and the flagship's DP step at global batch 8
+(``dp_flagship``: 42 + 42 launches per rank per step, the first loss
+against the one-process step's, ZeRO-1's moments, a rerun bit for bit).
+The kernels line's ``length_sharded_launches_per_rank`` and
+``dp_train_launches_per_rank`` count those. No time taken over gloo on
+one card is a multi-GPU speed.
 Without a CUDA device it exits with code 1 and prints no result.
 The kernel-vs-plain rows run at batch 1 (bf16 and f32) and, in bf16, at the
 guided pass's batch of 2 and the served batch of 8, with the same bars.
@@ -168,6 +188,7 @@ import functools
 import gc
 import json
 import math
+import os
 import pstats
 import shutil
 import subprocess
@@ -2211,7 +2232,9 @@ def phase_cli_train_sample(root: Path):
     ``train`` (the flagship preset, 2 steps at batch 8, crop 2^18, the
     corpus on the device), ``sample`` (one 50-step sample of 2^18) and
     ``info --params``; each must exit 0, the WAV read back as finite stereo
-    of 2^18 frames, ``info`` count 366.6 M parameters."""
+    of 2^18 frames, ``info`` count 366.6 M parameters. ``train`` runs on
+    ``create_mesh()`` and ``Trainer(mesh=)`` as the JAX CLI does: alone,
+    one rank over NCCL."""
     import numpy as np
     from audio_diffusion_torch.data import wav_probe, wav_read
 
@@ -2245,6 +2268,12 @@ def phase_cli_train_sample(root: Path):
             emit(dict(phase="cli_train_sample", **results))
             raise AssertionError(f"cli_train_sample: {name} exited "
                                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+        if name == "train":
+            results["mesh"] = [ln for ln in proc.stdout.splitlines()
+                               if ln.startswith("mesh:")]
+            if results["mesh"] != ["mesh: data=1 x model=1 over nccl"]:
+                raise AssertionError(f"cli_train_sample: train's mesh "
+                                     f"{results['mesh']}")
     wav = smp / "sample_0.wav"
     audio = wav_read(wav)
     info = [ln for ln in results["info"]["stdout"]
@@ -3451,6 +3480,604 @@ def phase_first_item_flagship(torch, noise):
     return launches, train
 
 
+# ------------------------------------------------------------- multi-GPU
+# Two ranks, each a child process of this script (``chip_smoke.py --rank R
+# PORT GROUP DIR BACKEND``); on one card they share it over gloo, whose
+# collectives on CUDA tensors go through the host.
+RANKS = 2
+RANK_TIMEOUT = 900
+# The CPU tests' small net (tests/test_torch_parallel.py; its 256-wide
+# level gives the model axis leaves to shard), and a length at which every
+# rank's shard is a multiple of its level's statistics tile.
+SMALL_PARALLEL = dict(in_channels=2, channels=[8, 32, 256], factors=[1, 4, 2],
+                      items=[1, 1, 1], attentions=[0, 0, 1], attention_heads=4,
+                      attention_features=8, modulation_features=64,
+                      resnet_groups=4)
+SMALL_PARALLEL_LENGTH = 2**14
+SMALL_PARALLEL_BATCH = 4
+SMALL_PARALLEL_LR = 1e-4
+DP_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(group: str, root: Path, backend: str):
+    """Run the rank phases ``group`` as RANKS child processes of this script
+    (rendezvous on a free local port; rank r on card r % device_count),
+    wait for every child within RANK_TIMEOUT, check every exit code, and
+    return each rank's results. A rank that fails fails the run."""
+    port = free_port()
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here))
+    procs, logs = [], []
+    for r in range(RANKS):
+        logs.append(open(root / f"{group}_{backend}_rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+             str(port), group, str(root), backend], cwd=here, env=env,
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        for r, _ in bad:
+            tail = (root / f"{group}_{backend}_rank{r}.log").read_text()
+            print(f"--- {group} rank {r} ({backend}):\n{tail[-6000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"{group} ({backend}): ranks (rank, exit code) "
+                             f"{bad} failed")
+    return [json.loads((root / f"{group}_{backend}_rank{r}.json")
+                       .read_text()) for r in range(RANKS)]
+
+
+def rank_main(argv) -> int:
+    """A rank's process: join the group, run its phases, save its results.
+    Any exception fails the process, and so the run."""
+    rank, port, group, root, backend = (int(argv[0]), argv[1], argv[2],
+                                        Path(argv[3]), argv[4])
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                       WORLD_SIZE=str(RANKS), RANK=str(rank),
+                       LOCAL_RANK=str(rank))
+    import torch
+    import torch.distributed as dist
+    from audio_diffusion_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(backend=backend)
+    out = RANK_GROUPS[group](torch, mesh, rank, root, backend)
+    (root / f"{group}_{backend}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_kernel_sharded(torch, mesh, rank):
+    """The staged, length-sharded item (two shards) at every flagship level
+    shape, bf16 and f32: against the sharded plain version (the unsharded
+    rows' bars) and against the unsharded kernel (statistics and output bit
+    for bit), with each level's plan, the staged item's time per rank, the
+    halo copies' device time and the unsharded kernel's."""
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.parallel import comm
+
+    shard = comm.group_shard(mesh.get_group("data"))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for level, (c, length) in enumerate(LEVELS):
+            args = item_inputs(c, length, dtype, gen)
+            x, params = args[0], tuple(args[1:])
+            part = length // RANKS
+            local = x[:, rank * part:(rank + 1) * part].contiguous()
+            with torch.inference_mode():
+                got, stats = resnet._launch_sharded(local, params, GROUPS,
+                                                    1e-5, True, shard,
+                                                    keep_stats=True)
+                ref = resnet.resnet_item_sharded_reference(
+                    local, *params, shard=shard, groups=GROUPS)
+                full, _, _, full_stats = resnet._launch_forward(
+                    x, params, GROUPS, 1e-5, True, keep=True)
+                want = full[:, rank * part:(rank + 1) * part]
+                err = (got.float() - ref.float()).abs().max().item()
+                ymax = ref.float().abs().max().item()
+                bound = (2e-4 * max(1.0, ymax) if dtype == torch.float32
+                         else 2.0 ** -5 * ymax)
+                row = dict(level=level, channels=c, length=length,
+                           shard_length=part, dtype=dname, max_abs_err=err,
+                           tolerance=bound, max_abs_out=ymax,
+                           output_bit_equal=torch.equal(got, want),
+                           stats_bit_equal=torch.equal(stats, full_stats),
+                           conv_plan=resnet.conv_plan(1, length, c),
+                           # Wall time: the gathers go through the host.
+                           staged_ms=sorted(host_ms(
+                               lambda: resnet._launch_sharded(
+                                   local, params, GROUPS, 1e-5, True, shard))
+                               for _ in range(5))[2],
+                           kernel_ms=cuda_ms(lambda: resnet.fused_resnet_item(
+                               x, *params, groups=GROUPS), flush, reps=5),
+                           halo_copies_ms=2 * cuda_ms(lambda: comm.pad_halo(
+                               local, local[:, :1], local[:, -1:])[0][
+                                   :, 1:part + 1].contiguous(), flush,
+                               reps=5))
+            rows.append(row)
+            if not (err <= bound and row["output_bit_equal"]
+                    and row["stats_bit_equal"]):
+                raise AssertionError(f"kernel_sharded_vs_plain rank {rank}: "
+                                     f"{row}")
+    return rows
+
+
+def recording_adam(seen: list, lr: float):
+    """An Adam factory whose optimizer appends each step's gradients to
+    ``seen`` (for the rounding mask of the parameters' bar)."""
+    import torch
+
+    class Recording(torch.optim.Adam):
+        def step(self, closure=None):
+            seen.append([p.grad.detach().clone() for g in self.param_groups
+                         for p in g["params"]])
+            return super().step(closure)
+
+    return functools.partial(Recording, lr=lr)
+
+
+def small_parallel_steps(torch, params0, x, mesh=None, **kw):
+    """DP_STEPS Adam steps of the small net from ``params0`` on ``x`` (this
+    rank's rows with a mesh): (losses, grad norms, parameters, state, the
+    gradients each step saw)."""
+    from audio_diffusion_torch import DiffusionModel, UNetV0, make_train_step
+
+    model = DiffusionModel(net_t=UNetV0, **SMALL_PARALLEL)
+    with torch.no_grad():
+        for k, p in model.params.items():
+            p.copy_(params0[k])
+    seen = []
+    init, step = make_train_step(
+        model.loss, recording_adam(seen, SMALL_PARALLEL_LR), mesh=mesh, **kw)
+    state = init(model.params, torch.Generator(device="cuda").manual_seed(7))
+    losses, norms = [], []
+    for _ in range(DP_STEPS):
+        state, m = step(state, x)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return (losses, norms, {k: v.detach().clone()
+                            for k, v in state.params.items()}, state, seen)
+
+
+def params_within(got, want, grads, norms):
+    """Max-abs over elements whose every step's gradient exceeds 1e-6 of
+    the gradient norm (where Adam's step is beyond the rounding), the share
+    of the others and their max-abs (Adam may turn a rounding difference
+    there into up to lr per step). The small net's zero-initialized leaves,
+    filled with normal(0.02) values, leave about 1% of the elements there
+    on the card; the bar takes up to 5%."""
+    import torch
+
+    clear_err, other_err, masked, total = 0.0, 0.0, 0, 0
+    for i, (name, w) in enumerate(want.items()):
+        diff = (got[name] - w).abs()
+        clear = torch.stack([g[i].abs() > 1e-6 * n
+                             for g, n in zip(grads, norms)]).all(0)
+        if clear.any():
+            clear_err = max(clear_err, diff[clear].max().item())
+        if (~clear).any():
+            other_err = max(other_err, diff[~clear].max().item())
+        masked += int((~clear).sum())
+        total += w.numel()
+    return clear_err, other_err, masked / total
+
+
+def rank_small_reference(torch, mesh, rank, root, backend):
+    """The small net's DP step, ZeRO-1 and model-axis step against one rank
+    on the card, and a 4-step length-sharded sample against the unsharded
+    one, to the CPU tests' bars."""
+    from audio_diffusion_torch import (DiffusionModel, UNetV0,
+                                       sample_length_sharded)
+    from audio_diffusion_torch.parallel import create_mesh, shard_batch
+
+    base = DiffusionModel(net_t=UNetV0, seed=1, **SMALL_PARALLEL)
+    fill_zero_params(base)
+    params0 = {k: v.detach().clone() for k, v in base.params.items()}
+    x = torch.randn(SMALL_PARALLEL_BATCH, 2, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    one = small_parallel_steps(torch, params0, x)
+    local = shard_batch(x, mesh)
+    dp = small_parallel_steps(torch, params0, local, mesh)
+    z = small_parallel_steps(torch, params0, local, mesh, zero1=True)
+    mp = small_parallel_steps(torch, params0, x,
+                              create_mesh(data=1, model=RANKS,
+                                          backend=backend))
+    clear_err, other_err, masked = params_within(dp[2], one[2], one[4],
+                                                 one[1])
+    zero1_moments = all(
+        torch.equal(z[3].shards[k].cut(dp[3].optimizer.state[p][key])
+                    if k in z[3].shards else dp[3].optimizer.state[p][key],
+                    z[3].optimizer.state[z[3].optimizer_leaf(k)][key])
+        for k, p in dp[3].params.items() for key in ("exp_avg",
+                                                     "exp_avg_sq"))
+    mp_err = max((mp[2][k] - w).abs().max().item() for k, w in one[2].items())
+    model = DiffusionModel(net_t=UNetV0, **SMALL_PARALLEL)
+    with torch.no_grad():
+        for k, p in model.params.items():
+            p.copy_(params0[k])
+    noise = torch.randn(1, 2, SMALL_PARALLEL_LENGTH, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    want = model.sample(noise, num_steps=4)
+    got = sample_length_sharded(model, noise, 4, mesh, gather=True)
+    out = dict(
+        dp_losses=dp[0], one_losses=one[0], dp_grad_norms=dp[1],
+        one_grad_norms=one[1],
+        dp_loss_rel_err=max(abs(a - b) / abs(b)
+                            for a, b in zip(dp[0], one[0])),
+        dp_params_max_abs_err=clear_err, dp_params_other_max_abs_err=other_err,
+        dp_params_masked_share=masked,
+        zero1_params_bit_equal=all(torch.equal(z[2][k], v)
+                                   for k, v in dp[2].items()),
+        zero1_moments_bit_equal=zero1_moments,
+        zero1_moment_share=sum(z[3].optimizer.state[z[3].optimizer_leaf(k)]
+                               ["exp_avg"].numel() for k in z[2])
+        / sum(v.numel() for v in z[2].values()),
+        model_axis_params_max_abs_err=mp_err,
+        model_axis_sharded_leaves=len(mp[3].shards),
+        sample_max_abs_err=(got - want).abs().max().item(),
+        sample_bit_equal=torch.equal(got, want),
+        sample_length=SMALL_PARALLEL_LENGTH)
+    ok = (out["dp_loss_rel_err"] <= 2e-5 and clear_err <= 1e-6
+          and other_err <= 2 * SMALL_PARALLEL_LR * DP_STEPS and masked < 0.05
+          and out["zero1_params_bit_equal"] and zero1_moments
+          and mp_err <= 1e-6 and out["model_axis_sharded_leaves"] > 0
+          and torch.allclose(got, want, atol=2e-4, rtol=2e-4))
+    if not ok:
+        raise AssertionError(f"multi_rank_small_reference rank {rank}: {out}")
+    return out
+
+
+def ranks_small(torch, mesh, rank, root, backend):
+    return dict(kernel_sharded_vs_plain=rank_kernel_sharded(torch, mesh, rank),
+                multi_rank_small_reference=rank_small_reference(
+                    torch, mesh, rank, root, backend))
+
+
+def flagship_noise(torch):
+    """The main path's sample noise (the parent's ``noise``)."""
+    return torch.randn(1, 2, LENGTH, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+
+
+def dp_batch(torch):
+    """The DP train step's global batch of 8 and its loss generator."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = torch.randn(TRAIN_BATCH, 2, LENGTH, device="cuda",
+                        generator=gen).clamp_(-1.0, 1.0)
+    return batch, torch.Generator(device="cuda").manual_seed(5)
+
+
+def sample_trace(torch, model, noise, mesh=None, record_step=None):
+    """A 50-step sample of ``noise`` (``sample_length_sharded`` over the
+    mesh's data ranks if given: this rank's part) with the net's output at
+    every step, and at step ``record_step`` every module's output in call
+    order."""
+    from audio_diffusion_torch import sample_length_sharded
+
+    root = model.net.module
+    calls, outs, mods = [0], [], []
+
+    def mod_hook(name):
+        def hook(m, i, o):
+            if calls[0] - 1 == record_step and torch.is_tensor(o):
+                mods.append((name, o.detach().clone()))
+        return hook
+
+    hooks = [root.register_forward_pre_hook(
+                 lambda m, i: calls.__setitem__(0, calls[0] + 1)),
+             root.register_forward_hook(
+                 lambda m, i, o: outs.append(o.detach().clone()))]
+    if record_step is not None:
+        hooks += [m.register_forward_hook(mod_hook(n))
+                  for n, m in root.named_modules() if n]
+    try:
+        sample = (sample_length_sharded(model, noise, NUM_STEPS, mesh)
+                  if mesh is not None
+                  else model.sample(noise, num_steps=NUM_STEPS))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sample, outs, mods
+
+
+def first_divergence(torch, model, noise, mesh, rank, sharded, sharded_v):
+    """The sharded 50-step sample (``sharded``, with its net outputs
+    ``sharded_v``) against the whole one in this process: whether they are
+    bit-equal, and if not the first step whose net output differs on this
+    rank's rows and, at that step, the first module whose output does (in
+    call order; the net itself where only its own ops differ), with its
+    max-abs error. Returns that and the whole sample on the host."""
+    def rows(s, w):
+        if s.shape == w.shape:
+            return w
+        axis = 1 if s.shape[1] * RANKS == w.shape[1] else s.ndim - 1
+        n = s.shape[axis]
+        return w.narrow(axis, rank * n, n)
+
+    whole, whole_v, _ = sample_trace(torch, model, noise)
+    out = dict(bit_equal=torch.equal(sharded, rows(sharded, whole)))
+    step = next((k for k, (s, w) in enumerate(zip(sharded_v, whole_v))
+                 if not torch.equal(s, rows(s, w))), None)
+    out["first_step"] = step
+    if step is not None:
+        _, _, whole_m = sample_trace(torch, model, noise, record_step=step)
+        _, _, sharded_m = sample_trace(torch, model, noise, mesh,
+                                       record_step=step)
+        for (name, w), (name_s, s) in zip(whole_m, sharded_m):
+            if name != name_s:
+                out["module"] = f"call order differs: {name} / {name_s}"
+                break
+            w = rows(s, w)
+            if not torch.equal(s, w):
+                out.update(module=name, shape=list(s.shape),
+                           max_abs_err=(s.float() - w.float()).abs().max()
+                           .item(), max_abs_out=w.float().abs().max().item())
+                break
+    return out, whole.cpu()
+
+
+def rank_length_sharded(torch, model, mesh, rank, root):
+    """The 50-step flagship sample with the length split over the ranks:
+    launches, collectives and ms per step, peak; this rank's part saved for
+    the parent; against the whole sample in this process, and the first
+    step and module that diverge if any."""
+    from audio_diffusion_torch import sample_length_sharded
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.parallel import comm
+
+    noise = flagship_noise(torch)
+    calls = [0]
+    gather = comm.all_gather_rows
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return gather(*args, **kwargs)
+
+    with mock.patch.object(comm, "all_gather_rows", counted):
+        sample_length_sharded(model, noise, 2, mesh)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resnet.fused_resnet_item.launches = 0
+        calls[0] = 0
+        t0 = time.perf_counter()
+        # The sharded sample, with the net's output kept at each step.
+        out, out_v, _ = sample_trace(torch, model, noise, mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / NUM_STEPS
+        launches, collectives = resnet.fused_resnet_item.launches, calls[0]
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(out.cpu(), root / f"length_sharded_rank{rank}.pt")
+    divergence, whole = first_divergence(torch, model, noise, mesh, rank,
+                                         out, out_v)
+    if rank == 0:
+        torch.save(whole, root / "length_sharded_whole.pt")
+    del out_v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, expected_launches=2 * sum(ITEMS)
+                * NUM_STEPS, collectives_per_step=collectives / NUM_STEPS,
+                ms_per_step=ms, peak_memory_bytes=peak,
+                out_shape=list(out.shape),
+                finite=bool(torch.isfinite(out).all()),
+                first_divergence=divergence)
+
+
+def rank_dp_flagship(torch, model, mesh, rank):
+    """The flagship's DP train step at global batch 8 (4 per rank): the
+    losses, launches per step, ms per step and peak over DP_STEPS steps;
+    one step again (bit for bit) and one with ZeRO-1 (the same bits, half
+    the moments per rank); every parameter moved."""
+    from audio_diffusion_torch import make_train_step
+    from audio_diffusion_torch.ops.kernels import resnet
+    from audio_diffusion_torch.parallel import shard_batch
+
+    item = resnet.fused_resnet_item
+    init = {k: v.detach().clone() for k, v in model.params.items()}
+    first = {}
+    batch, _ = dp_batch(torch)
+    local = shard_batch(batch, mesh)
+    del batch
+
+    def run(zero1, steps, keep=False):
+        with torch.no_grad():
+            for k, p in model.params.items():
+                p.copy_(init[k])
+        init_fn, step = make_train_step(
+            model.loss, functools.partial(torch.optim.Adam, lr=1e-4),
+            mesh=mesh, zero1=zero1)
+        state = init_fn(model.params, dp_batch(torch)[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, launches = [], [], []
+        for i in range(steps):
+            item.launches = item.backward_launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            launches.append([item.launches, item.backward_launches])
+            if keep and i == 0:
+                first.update({k: v.detach().clone()
+                              for k, v in model.params.items()})
+        moments = sum(v.numel() * v.element_size()
+                      for st in state.optimizer.state.values()
+                      for v in st.values() if torch.is_tensor(v) and v.ndim)
+        res = dict(losses=losses, ms_per_step=ms, launches_per_step=launches,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   moment_bytes=moments)
+        del state
+        return res
+
+    plain = run(False, DP_STEPS, keep=True)
+    still = [k for k, v in first.items() if torch.equal(v, init[k])]
+    again = run(False, 1)
+    rerun_bit = all(torch.equal(p.detach(), first[k])
+                    for k, p in model.params.items())
+    zero = run(True, 1)
+    zero1_bit = all(torch.equal(p.detach(), first[k])
+                    for k, p in model.params.items())
+    del init, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(batch=TRAIN_BATCH, rank_batch=TRAIN_BATCH // RANKS,
+               plain=plain, rerun=again, zero1=zero, still=still[:5],
+               rerun_bit_equal=rerun_bit, zero1_params_bit_equal=zero1_bit)
+    expected = [[2 * sum(ITEMS)] * 2] * DP_STEPS
+    if (still or not (rerun_bit and zero1_bit)
+            or plain["launches_per_step"] != expected
+            or again["losses"] != plain["losses"][:1]
+            or 2 * zero["moment_bytes"] > plain["moment_bytes"] * 1.01):
+        raise AssertionError(f"dp_flagship rank {rank}: {out}")
+    return out
+
+
+def ranks_flagship(torch, mesh, rank, root, backend):
+    """Both flagship phases on one flagship (sampling leaves its weights
+    as they were)."""
+    model = build_flagship(torch)
+    return dict(length_sharded_flagship=rank_length_sharded(
+        torch, model, mesh, rank, root), dp_flagship=rank_dp_flagship(
+        torch, model, mesh, rank))
+
+
+RANK_GROUPS = {"small": ranks_small, "flagship": ranks_flagship}
+
+
+def phase_multi_rank_small(root: Path, backend: str = "gloo"):
+    """``kernel_sharded_vs_plain`` and ``multi_rank_small_reference`` on
+    RANKS ranks (the ranks check their bars; this emits their rows)."""
+    ranks = spawn_ranks("small", root, backend)
+    label = ("2 ranks on one card over gloo, host-staged" if backend == "gloo"
+             else f"{RANKS} ranks on {RANKS} cards over NCCL")
+    for row in ranks[0]["kernel_sharded_vs_plain"]:
+        emit(dict(phase="kernel_sharded_vs_plain", backend=backend,
+                  times=label, **row))
+    emit(dict(phase="kernel_sharded_vs_plain_ranks", backend=backend,
+              rows_per_rank=[len(r["kernel_sharded_vs_plain"])
+                             for r in ranks],
+              all_bit_equal=all(row["output_bit_equal"]
+                                and row["stats_bit_equal"]
+                                for r in ranks
+                                for row in r["kernel_sharded_vs_plain"])))
+    for r, res in enumerate(ranks):
+        emit(dict(phase="multi_rank_small_reference", backend=backend,
+                  rank=r, **res["multi_rank_small_reference"]))
+    return ranks
+
+
+def phase_multi_rank_flagship(root: Path, unsharded, dp_reference_loss):
+    """``length_sharded_flagship`` and ``dp_flagship`` on two ranks sharing
+    the card over gloo: the sharded sample against the main path's
+    unsharded one (bit for bit is the target; otherwise the first diverging
+    module and a relative L2 error within the full-width forward's 5e-2),
+    2,100 launches per rank; the DP step's first loss within 1e-5 of the
+    one-process batch-8 step's, 42 + 42 launches per rank per step.
+    Returns (launches per rank of the sample, of a DP step)."""
+    import torch
+
+    ranks = spawn_ranks("flagship", root, "gloo")
+    label = "2 ranks on one card over gloo, host-staged"
+    parts = [torch.load(root / f"length_sharded_rank{r}.pt")
+             for r in range(RANKS)]
+    got = torch.cat(parts, dim=-1).float()
+    want = unsharded.float()
+    bit = torch.equal(got, want)
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    ls = [r["length_sharded_flagship"] for r in ranks]
+    # The ranks' own unsharded sample, against the one this process took.
+    whole = torch.load(root / "length_sharded_whole.pt").float()
+    emit(dict(phase="length_sharded_flagship", steps=NUM_STEPS,
+              length=LENGTH, dtype="bfloat16", ranks=RANKS, times=label,
+              bit_equal=bit,
+              max_abs_err=(got - want).abs().max().item(),
+              max_abs_out=want.abs().max().item(), rel_l2_err=rel_l2,
+              ranks_whole_bit_equal_to_main_path=torch.equal(whole, want),
+              ranks_whole_max_abs_err=(whole - want).abs().max().item(),
+              per_rank=ls))
+    launches = [r["launches"] for r in ls]
+    if launches != [r["expected_launches"] for r in ls]:
+        raise AssertionError(f"length_sharded_flagship: launches {launches}")
+    divergences = [r["first_divergence"] for r in ls]
+    found = all(d["bit_equal"] or d.get("module") for d in divergences)
+    if not all(r["finite"] for r in ls) or not (
+            bit or (rel_l2 <= 5e-2 and found)):
+        raise AssertionError(
+            f"length_sharded_flagship: bit-equal {bit}, rel L2 {rel_l2}, "
+            f"first divergence {divergences}")
+    dp = [r["dp_flagship"] for r in ranks]
+    rel = abs(dp[0]["plain"]["losses"][0] - dp_reference_loss) / abs(
+        dp_reference_loss)
+    emit(dict(phase="dp_flagship", times=label, ranks=RANKS,
+              reference_loss=dp_reference_loss, loss_rel_err=rel,
+              moment_share_zero1=(dp[0]["zero1"]["moment_bytes"]
+                                  / dp[0]["plain"]["moment_bytes"]),
+              per_rank=dp))
+    if rel > 1e-5 or dp[0]["plain"]["losses"] != dp[1]["plain"]["losses"]:
+        raise AssertionError(f"dp_flagship: loss rel {rel}, losses "
+                             f"{[d['plain']['losses'] for d in dp]}")
+    return launches, [d["plain"]["launches_per_step"][-1] for d in dp]
+
+
+def phase_nccl_world1():
+    """``create_mesh()`` under NCCL at world size 1, with no launcher: the
+    small net's mesh step bit-equal to the plain step."""
+    import torch
+    import torch.distributed as dist
+    from audio_diffusion_torch import DiffusionModel, UNetV0
+    from audio_diffusion_torch.parallel import create_mesh
+
+    base = DiffusionModel(net_t=UNetV0, seed=1, **SMALL_PARALLEL)
+    fill_zero_params(base)
+    params0 = {k: v.detach().clone() for k, v in base.params.items()}
+    x = torch.randn(SMALL_PARALLEL_BATCH, 2, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    plain = small_parallel_steps(torch, params0, x)
+    mesh = create_mesh()
+    try:
+        backend = dist.get_backend()
+        runs = {z: small_parallel_steps(torch, params0, x, mesh, zero1=z)
+                for z in (False, True)}
+    finally:
+        dist.destroy_process_group()
+    bit = {z: r[0] == plain[0] and all(torch.equal(r[2][k], v)
+                                       for k, v in plain[2].items())
+           for z, r in runs.items()}
+    emit(dict(phase="nccl_world1", backend=backend, mesh=list(mesh.shape),
+              bit_equal=bit[False], zero1_bit_equal=bit[True],
+              losses=plain[0]))
+    if backend != "nccl" or not all(bit.values()):
+        raise AssertionError(f"nccl_world1: backend {backend}, bit {bit}")
+
+
 def main() -> int:
     import torch
 
@@ -3503,10 +4130,24 @@ def main() -> int:
     phase_distill_small_reference()
     phase_nd_small_reference()
 
+    # Multi-GPU, small: NCCL at world size 1 in this process; then two ranks
+    # on the card over gloo (and over NCCL where there are two cards): the
+    # sharded item at the flagship's levels and the small net's paths.
+    phase_nccl_world1()
+    ranks_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    small_ranks = phase_multi_rank_small(ranks_root)
+    if torch.cuda.device_count() >= RANKS:
+        phase_multi_rank_small(ranks_root, "nccl")
+
     model = build_flagship(torch)
-    noise = torch.randn(1, 2, LENGTH, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(1))
+    noise = flagship_noise(torch)
     phase_forward(model, noise)
+    # The one-process loss that the DP step's first loss is held against,
+    # on the untrained weights that the ranks build.
+    batch, loss_gen = dp_batch(torch)
+    with torch.no_grad():
+        dp_reference_loss = model.loss(model.params, loss_gen, batch).item()
+    del batch
 
     # Warm-up, then the main path: counts set to 0 just before, read after;
     # two more timed samples, since host time per step varies between runs.
@@ -3524,6 +4165,7 @@ def main() -> int:
                              f"expected {items_per_forward * NUM_STEPS}")
     if out.shape != noise.shape or not torch.isfinite(out).all():
         raise AssertionError("sample: bad shape or non-finite values")
+    unsharded = out.cpu()
     phase_profile("profile", lambda: model.sample(noise, num_steps=2),
                   steps=2)
     phase_operator_dispatch(model, noise)
@@ -3639,6 +4281,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # Multi-GPU at full width, two ranks sharing the card over gloo: the
+    # length-sharded 50-step sample and the DP train step, each with its
+    # own counts in each rank.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ls_launches, dp_launches = phase_multi_rank_flagship(
+            ranks_root, unsharded, dp_reference_loss)
+    finally:
+        shutil.rmtree(ranks_root, ignore_errors=True)
+    staged = [r for r in small_ranks[0]["kernel_sharded_vs_plain"]
+              if r["dtype"] == "bfloat16"]
+
     # Per pass of the net at batch 1: each level's per-item bf16 time times
     # its items per pass.
     def summary(name, source, replaces, level_rows, **counts):
@@ -3714,6 +4369,13 @@ def main() -> int:
                     guidance_distill_launches[0]),
                 first_item_launches=first_item_launches,
                 first_item_train_launches=first_item_train[0],
+                length_sharded_launches_per_rank=ls_launches,
+                dp_train_launches_per_rank=[d[0] for d in dp_launches],
+                sharded_staged_ms_per_rank=sum(
+                    r["staged_ms"] * 2 * ITEMS[r["level"]] for r in staged),
+                sharded_halo_copies_ms=sum(
+                    r["halo_copies_ms"] * 2 * ITEMS[r["level"]]
+                    for r in staged),
                 **{f"batch8_{k}": batch8_fwd[k]
                    for k in per_pass_keys + ("host_ms", "bound_by")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
@@ -3725,6 +4387,7 @@ def main() -> int:
                 guidance_distill_launches_per_step=(
                     guidance_distill_launches[1]),
                 first_item_train_launches=first_item_train[1],
+                dp_train_launches_per_rank=[d[1] for d in dp_launches],
                 conv_sources=[CONV_SOURCE, WGRAD_SOURCE],
                 train_batch_ms=sum(r["kernel_ms"] * r["items_per_forward"]
                                    for r in bwd_train_rows),
@@ -3753,4 +4416,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else main())

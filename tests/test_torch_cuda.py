@@ -18,6 +18,7 @@ zero in exact arithmetic and rounding noise in both: it is compared on the
 scale of conv 2's bias gradient.
 """
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -792,3 +793,152 @@ def test_first_item_net_on_card_matches_cpu(cuda_device):
     got = gpu.sample(noise, num_steps=4).cpu()
     assert fused_resnet_item.launches - before == 4 * 6
     assert (got - want).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_group_norm_statistics_kernel_matches_plain(cuda_device):
+    """Without a gradient the plain GroupNorm takes its statistics from the
+    item's statistics kernels (tile sums in double); with one, from torch's
+    reductions: the two agree to float32 rounding."""
+    from audio_diffusion_torch.ops.unet import group_norm
+
+    rs = np.random.default_rng(5)
+    x = torch.from_numpy(rs.standard_normal((2, 3000, 16)).astype(
+        np.float32) * 3 + 1).to(cuda_device)
+    scale = torch.from_numpy(rs.standard_normal(16).astype(np.float32)).to(
+        cuda_device)
+    bias = torch.zeros(16, device=cuda_device)
+    with torch.no_grad():
+        got = group_norm(x, 8, scale, bias)
+    want = group_norm(x.clone().requires_grad_(True), 8, scale, bias)
+    assert (got - want.detach()).abs().max().item() <= 1e-4
+
+
+# Length-sharded item stages and the DP step over two ranks sharing the card
+# over gloo (each a process running this file as a worker, as in
+# tests/test_torch_parallel.py). Each shard is a multiple of its level's
+# statistics tile (8192 // C rows), so the staged item's statistics and
+# output are the unsharded kernel's bits; against the sharded plain version
+# the bars are this file's. The DP step: loss rtol 2e-5 against one rank,
+# parameters after two Adam steps within 1e-6 where every step's gradient
+# exceeds 1e-6 of the gradient norm (tests/test_torch_parallel.py).
+SHARDED_SHAPES = [(64, 2048), (256, 512)]
+SHARDED_DTYPES = [torch.float32, torch.bfloat16]
+DP_CFG = dict(in_channels=2, channels=[8, 32, 256], factors=[1, 4, 2],
+              items=[1, 1, 1], attentions=[0, 0, 1], attention_heads=4,
+              attention_features=8, modulation_features=64, resnet_groups=4)
+
+
+def dp_steps(params0, x, mesh=None):
+    """Two Adam steps of the DP_CFG net on the card from ``params0``:
+    (losses, grad norms, parameters, each step's gradients)."""
+    from test_torch_parallel import RecordingAdam, adam
+
+    model = DiffusionModel(net_t=UNetV0, **DP_CFG)
+    with torch.no_grad():
+        for k, p in model.params.items():
+            p.copy_(params0[k])
+    seen = RecordingAdam.seen = []
+    init, step = make_train_step(model.loss, adam(recording=True), mesh=mesh)
+    state = init(model.params, torch.Generator(device="cuda").manual_seed(7))
+    losses, norms = [], []
+    for _ in range(2):
+        state, m = step(state, x)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return losses, norms, {k: v.detach().cpu() for k, v in
+                           state.params.items()}, [[g.cpu() for g in s]
+                                                   for s in seen]
+
+
+def sharded_worker(rank, port, root):
+    from test_torch_parallel import join_group
+
+    from audio_diffusion_torch.ops.kernels.resnet import (
+        _launch_forward, _launch_sharded, resnet_item_sharded_reference)
+    from audio_diffusion_torch.parallel import comm, create_mesh, shard_batch
+
+    join_group(rank, port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(backend="gloo")
+    shard = comm.group_shard(mesh.get_group("data"))
+    items = []
+    for c, length in SHARDED_SHAPES:
+        for dtype in SHARDED_DTYPES:
+            args = item_inputs(c, length, 1, c, dtype, "cuda")
+            x, params = args[0], tuple(args[1:])
+            part = length // 2
+            local = x[:, rank * part:(rank + 1) * part].contiguous()
+            with torch.inference_mode():
+                got, stats = _launch_sharded(local, params, GROUPS, 1e-5,
+                                             True, shard, keep_stats=True)
+                ref = resnet_item_sharded_reference(local, *params,
+                                                    shard=shard,
+                                                    groups=GROUPS)
+                full, _, _, full_stats = _launch_forward(
+                    x, params, GROUPS, 1e-5, True, keep=True)
+            items.append(dict(
+                err=(got.float() - ref.float()).abs().max().item(),
+                ymax=ref.float().abs().max().item(),
+                output_bit_equal=torch.equal(
+                    got, full[:, rank * part:(rank + 1) * part]),
+                stats_bit_equal=torch.equal(stats, full_stats)))
+    base = DiffusionModel(net_t=UNetV0, seed=1, **DP_CFG)
+    with torch.no_grad():
+        for p in base.params.values():
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=base.generator)
+    params0 = {k: v.detach().clone() for k, v in base.params.items()}
+    x = torch.randn(4, 2, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    torch.save(dict(items=items, one=dp_steps(params0, x),
+                    dp=dp_steps(params0, shard_batch(x, mesh), mesh)),
+               root / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_card(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+
+    from test_torch_parallel import spawn
+
+    return spawn(Path(__file__), tmp_path_factory.mktemp("ranks"),
+                 timeout=600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(SHARDED_SHAPES)
+                                        * len(SHARDED_DTYPES)))
+def test_sharded_item_stages_match_plain(two_ranks_on_card, index):
+    dtype = SHARDED_DTYPES[index % len(SHARDED_DTYPES)]
+    for rank in two_ranks_on_card:
+        r = rank["items"][index]
+        bound = 2e-4 if dtype == torch.float32 else 2.0 ** -6 * r["ymax"]
+        assert r["err"] <= bound, (r, bound)
+        assert r["output_bit_equal"] and r["stats_bit_equal"], r
+
+
+@pytest.mark.cuda
+def test_two_rank_dp_step_on_card_matches_one_rank(two_ranks_on_card):
+    for rank in two_ranks_on_card:
+        losses, norms, want, grads = rank["one"]
+        got_losses, got_norms, got, _ = rank["dp"]
+        np.testing.assert_allclose(got_losses, losses, rtol=2e-5)
+        np.testing.assert_allclose(got_norms, norms, rtol=2e-5)
+        for i, (name, w) in enumerate(want.items()):
+            clear = torch.stack([g[i].abs() > 1e-6 * n
+                                 for g, n in zip(grads, norms)]).all(0)
+            diff = (got[name] - w).abs()
+            assert diff[clear].max().item() <= 1e-6, name
+            assert diff.max().item() <= 2 * 1e-4 * 2, name
+    assert two_ranks_on_card[0]["dp"][0] == two_ranks_on_card[1]["dp"][0]
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
+    from pathlib import Path
+
+    sharded_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))

@@ -19,6 +19,7 @@ import torch
 
 from audio_diffusion_torch import data as port
 from audio_diffusion_tpu import data as ref
+from test_torch_parallel import one_rank_mesh
 
 torch.set_num_threads(2)
 
@@ -230,7 +231,13 @@ def test_device_corpus_guard_dequant_and_mesh(tmp_path):
     # The float corpus holds the float decode of the files.
     np.testing.assert_array_equal(
         f32._corpus[:, :500].numpy(), port.wav_read(f32.files[0]))
-    with pytest.raises(NotImplementedError, match=r"item 4\)"):
+    # On a one-rank mesh the corpus is the one without a mesh, bit for bit.
+    with one_rank_mesh() as mesh:
+        meshed = port.DeviceCorpus(d, crop_frames=128, batch_size=8, seed=5,
+                                   mesh=mesh)
+        for step in (0, 3):
+            assert torch.equal(meshed.batch_at(step), i16.batch_at(step))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.DeviceCorpus(d, crop_frames=64, batch_size=2, mesh=object(),
                           device="cpu")
     if not torch.cuda.is_available():

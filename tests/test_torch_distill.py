@@ -41,6 +41,7 @@ from audio_diffusion_torch.distill import (_two_step_target,
                                            make_distill_loss,
                                            make_guidance_targets,
                                            make_teacher_targets)
+from test_torch_parallel import one_rank_mesh
 
 torch.set_num_threads(2)
 
@@ -351,7 +352,19 @@ def test_distiller_guards(uncond):
     distiller.steps = 3
     with pytest.raises(ValueError, match="odd step count"):
         distiller.stage(iter([batch(0)]), num_train_steps=1)
-    with pytest.raises(NotImplementedError, match=r"item 4\)"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ProgressiveDistiller(model, base_steps=8, mesh=object())
+    # On a one-rank mesh a halving step is the one without a mesh, bit for
+    # bit.
+    trained = []
+    with one_rank_mesh() as mesh:
+        for m in (None, mesh):
+            _, model = pair(TINY, 11)
+            model.generator.manual_seed(3)
+            ProgressiveDistiller(model, base_steps=4, mesh=m).stage(
+                itertools.repeat(batch(12)), num_train_steps=2,
+                log_fn=lambda s: None)
+            trained.append(model.params)
+    assert all(torch.equal(trained[1][k], v) for k, v in trained[0].items())
     adam = functools.partial(torch.optim.Adam, lr=1e-4)
     assert ProgressiveDistiller(model, 8, optimizer=adam).optimizer is adam

@@ -28,7 +28,10 @@ def test_import_loads_no_jax():
             "audio_diffusion_torch.export, audio_diffusion_torch.ops.quant, "
             "audio_diffusion_torch.distill, audio_diffusion_torch.eval, "
             "audio_diffusion_torch.embed, audio_diffusion_torch.ops.unet2d, "
-            "audio_diffusion_torch.ops.unet3d;"
+            "audio_diffusion_torch.ops.unet3d, "
+            "audio_diffusion_torch.parallel.comm, "
+            "audio_diffusion_torch.parallel.mesh, "
+            "audio_diffusion_torch.parallel.inference;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_diffusion_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -101,7 +104,9 @@ def test_serving_modules_import_no_jax_in_source():
 
     root = pathlib.Path(__file__).resolve().parents[1] / "audio_diffusion_torch"
     for rel in ("serve.py", "server.py", "export.py", "ops/quant.py",
-                "distill.py", "eval.py", "embed.py"):
+                "distill.py", "eval.py", "embed.py", "parallel/comm.py",
+                "parallel/mesh.py", "parallel/inference.py",
+                "parallel/train_step.py"):
         src = (root / rel).read_text()
         bad = re.findall(r"^\s*(?:from|import)\s+(jax\w*|flax|"
                          r"audio_diffusion_tpu)\b", src, re.MULTILINE)

@@ -238,10 +238,30 @@ def test_ema_after_one_step():
 
 
 def test_multi_gpu_options_raise():
-    model = fresh_model()
-    for kwargs in (dict(mesh=object()), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match=r"item 4\)"):
-            make_train_step(model.loss, torch.optim.Adam, **kwargs)
+    """mesh= takes a DeviceMesh, and anything else raises a TypeError that
+    names it; zero1=True without a mesh is a no-op, as in the JAX package:
+    after two Adam steps the parameters and moments are bit-equal to
+    zero1=False."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(fresh_model().loss, torch.optim.Adam, mesh=object())
+    x, sigmas, noise = (torch.from_numpy(a) for a in batch_sigma_noise(5))
+    states = []
+    for zero1 in (False, True):
+        model = fresh_model()
+        init, step = make_train_step(
+            port_loss_fn(model), functools.partial(torch.optim.Adam, lr=LR),
+            zero1=zero1)
+        state = init(model.params, torch.Generator().manual_seed(0))
+        for _ in range(2):
+            state, _ = step(state, x, sigmas=sigmas, noise=noise)
+        assert not state.shards
+        states.append(state)
+    plain, zero = states
+    for name, p in plain.params.items():
+        assert torch.equal(zero.params[name], p), name
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(zero.optimizer.state[zero.params[name]][key],
+                               plain.optimizer.state[p][key]), (name, key)
 
 
 def test_pcm16_batch_gives_the_float_decodes_loss_bit_for_bit():

@@ -278,7 +278,7 @@ def test_resume_is_bit_exact_and_ignores_torn_saves(tmp_path):
 def test_fit_options():
     """debug_nans raises at the first non-finite loss and leaves no mode on;
     the steps_per_call tail; (x, cond) batches need steps_per_call=1; the
-    assertion messages; mesh= is not ported."""
+    assertion messages; a mesh= that is no DeviceMesh raises."""
     model = DiffusionModel(**TINY)
     t = Trainer(model, TrainerConfig(debug_nans=True, log_every=100),
                 log_fn=lambda s: None)
@@ -304,7 +304,7 @@ def test_fit_options():
         Trainer(model, TrainerConfig(lr_schedule="cosine"))
     with pytest.raises(AssertionError, match="unknown lr_schedule"):
         Trainer(model, TrainerConfig(lr_schedule="linear"))
-    with pytest.raises(NotImplementedError, match=r"item 4\)"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(model, mesh=object())
 
 
