@@ -30,6 +30,7 @@ from torch import Tensor
 
 from ..ops.net import Net, cast_inference_params
 from ..ops.quant import dequantize_step_params, has_qtensors
+from ..spans import span
 from . import noise
 from .core import alpha_beta, linspace
 from .schedules import LinearSchedule, Schedule, UniformLambdaSchedule
@@ -113,13 +114,15 @@ def _step_loop(sampler, params: Dict[str, Tensor], x_noisy: Tensor,
     def loop(step_net):
         carry, enc = sampler.start(x_noisy), None
         for i in range(num_steps):
-            row = {name: t[i] for name, t in table.items()}
-            extra = reuse_kwargs(i, k, enc)
-            carry = sampler.step(step_net(), carry, row, **extra, **kwargs)
-            if "return_hidden" in extra:
-                carry, enc = carry
-            if show_progress:
-                print(f"Sampling (noise={float(row['sigma']):.2f})")
+            with span("sampler.step"):
+                row = {name: t[i] for name, t in table.items()}
+                extra = reuse_kwargs(i, k, enc)
+                carry = sampler.step(step_net(), carry, row, **extra,
+                                     **kwargs)
+                if "return_hidden" in extra:
+                    carry, enc = carry
+                if show_progress:
+                    print(f"Sampling (noise={float(row['sigma']):.2f})")
         return carry[0]
 
     return run_steps(sampler.net, params, loop)
@@ -222,18 +225,21 @@ class SDESampler(Sampler):
         def loop(step_net):
             x = x_noisy
             for i in range(num_steps):
-                v = step_net()(x, sigmas[i].expand(b).to(x.dtype), **kwargs)
-                xf, vf = x.float(), v.float()
-                x_pred = alphas[i] * xf - betas[i] * vf
-                noise_pred = betas[i] * xf + alphas[i] * vf
-                # β_{i+1} = 0 on the last step of a schedule ending at σ = 0,
-                # so no fresh noise reaches the clean output.
-                eps = noise.normal(generator, x.shape, x.dtype, x.device)
-                n_mix = mix_pred * noise_pred + mix_fresh * eps.float()
-                x = (alphas[i + 1] * x_pred
-                     + betas[i + 1] * n_mix).to(x.dtype)
-                if show_progress:
-                    print(f"Sampling (noise={float(sigmas_host[i]):.2f})")
+                with span("sampler.step"):
+                    v = step_net()(x, sigmas[i].expand(b).to(x.dtype),
+                                   **kwargs)
+                    xf, vf = x.float(), v.float()
+                    x_pred = alphas[i] * xf - betas[i] * vf
+                    noise_pred = betas[i] * xf + alphas[i] * vf
+                    # β_{i+1} = 0 on the last step of a schedule ending at
+                    # σ = 0, so no fresh noise reaches the clean output.
+                    eps = noise.normal(generator, x.shape, x.dtype, x.device)
+                    n_mix = mix_pred * noise_pred + mix_fresh * eps.float()
+                    x = (alphas[i + 1] * x_pred
+                         + betas[i + 1] * n_mix).to(x.dtype)
+                    if show_progress:
+                        print(f"Sampling "
+                              f"(noise={float(sigmas_host[i]):.2f})")
             return x
 
         return run_steps(self.net, params, loop)
@@ -363,14 +369,15 @@ class ARVSampler(Sampler):
         def loop(step_net):
             x = current
             for i in range(sigmas.shape[0] - 1):
-                channels = torch.cat([x, sigmas[i].to(x.dtype)], dim=1)
-                v = step_net()(channels, None, **kwargs)
-                x_pred = alphas[i] * x - betas[i] * v
-                noise_pred = betas[i] * x + alphas[i] * v
-                x = alphas[i + 1] * x_pred + betas[i + 1] * noise_pred
-                if show_progress:
-                    print(f"Sampling (noise="
-                          f"{float(sigmas[i, 0, 0, -1]):.2f})")
+                with span("sampler.step"):
+                    channels = torch.cat([x, sigmas[i].to(x.dtype)], dim=1)
+                    v = step_net()(channels, None, **kwargs)
+                    x_pred = alphas[i] * x - betas[i] * v
+                    noise_pred = betas[i] * x + alphas[i] * v
+                    x = alphas[i + 1] * x_pred + betas[i + 1] * noise_pred
+                    if show_progress:
+                        print(f"Sampling (noise="
+                              f"{float(sigmas[i, 0, 0, -1]):.2f})")
             return x
 
         return run_steps(self.net, params, loop)

@@ -24,6 +24,7 @@ them directly.
 """
 from __future__ import annotations
 
+import collections
 import queue as queue_mod
 import threading
 import time
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from .diffusion import noise as _noise
+from .spans import profiling
 
 __all__ = ["GenerationService", "to_pcm16"]
 
@@ -134,7 +136,22 @@ class GenerationService:
         (:func:`to_pcm16`, what the WAV writer stores) and futures resolve
         to int16 arrays, a quarter of the bytes to copy to the host.
         Divide by 32767 to recover floats.
+
+    ``stats`` counts requests, batches and padded slots, and keeps the
+    timeline of the last ``RECENT_BATCHES`` batches (``recent_batches``,
+    oldest first), each a JSON-ready dict: ``requests``, ``padded``,
+    ``num_steps``, ``profiled`` (a torch profiler ran at the batch's
+    start), ``queue_wait_s`` (one entry per request: submit to the batch's
+    start) and the seconds of the batch's four stages on the worker:
+    ``assemble_s`` (seed noise, stacking, conditioning), ``dispatch_s``
+    (the model call and the PCM16 conversion, which return once their work
+    is enqueued), ``device_wait_s`` (the copy of the result to the host,
+    which waits for the device to finish the batch) and ``reply_s`` (the
+    futures' results; None until every reply of the batch is set). Older
+    batches leave the timeline; ``batches`` counts them all.
     """
+
+    RECENT_BATCHES = 64
 
     def __init__(self, model, *, num_steps: int = 50, batch_size: int = 8,
                  max_wait_ms: float = 100.0, params: Optional[Dict] = None,
@@ -157,6 +174,8 @@ class GenerationService:
         self._n_served = 0
         self._n_batches = 0
         self._n_padded = 0
+        self._recent: "collections.deque[Dict[str, Any]]" = \
+            collections.deque(maxlen=self.RECENT_BATCHES)
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -235,7 +254,7 @@ class GenerationService:
         self._params = params
 
     @property
-    def stats(self) -> Dict[str, float]:
+    def stats(self) -> Dict[str, Any]:
         with self._stats_lock:
             return {
                 "requests": self._n_requests,
@@ -244,6 +263,8 @@ class GenerationService:
                 "mean_occupancy": (
                     self._n_served / self._n_batches / self._batch_size
                     if self._n_batches else 0.0),
+                "recent_batches": [dict(b, queue_wait_s=list(
+                    b["queue_wait_s"])) for b in self._recent],
             }
 
     def close(self, timeout: Optional[float] = 60.0) -> None:
@@ -363,6 +384,11 @@ class GenerationService:
     def _run_batch(self, reqs: List[_Request]) -> None:
         n = len(reqs)
         pad = self._batch_size - n
+        t0 = time.monotonic()
+        record: Dict[str, Any] = dict(
+            requests=n, padded=pad, num_steps=reqs[0].num_steps,
+            profiled=profiling(),
+            queue_wait_s=[t0 - r.t_enqueue for r in reqs])
         try:
             with torch.inference_mode():
                 if isinstance(reqs[0].primary, _SeedNoise):
@@ -389,18 +415,26 @@ class GenerationService:
                 # model.sample in another thread never observes it.
                 if self._params is not None:
                     cond["params"] = self._params
+                t1 = time.monotonic()
                 out = getattr(self._model, self._method)(
                     batch, num_steps=reqs[0].num_steps, **cond)
                 out = (to_pcm16(out) if self._result_format == "pcm16"
                        else out.to(torch.float32))
+                t2 = time.monotonic()
                 host = out.cpu().numpy()
+                t3 = time.monotonic()
+            record.update(assemble_s=t1 - t0, dispatch_s=t2 - t1,
+                          device_wait_s=t3 - t2, reply_s=None)
             with self._stats_lock:
                 self._n_batches += 1
                 self._n_served += n
                 self._n_padded += pad
+                self._recent.append(record)
             for i, r in enumerate(reqs):
                 if not r.future.done():  # the caller may have cancelled
                     r.future.set_result(host[i])
+            with self._stats_lock:
+                record["reply_s"] = time.monotonic() - t3
         except Exception as e:  # surface to all callers of this batch
             for r in reqs:
                 if not r.future.done():

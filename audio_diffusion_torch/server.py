@@ -11,8 +11,12 @@ Endpoints
 ``GET /healthz``
     Liveness: ``{"ok": true}``.
 ``GET /stats``
-    Service counters (requests, batches, padding, occupancy) plus the
-    server's static config.
+    Service counters (requests, batches, padding, occupancy), the
+    timeline of the last 64 batches (``recent_batches``: per batch its
+    requests, padding, steps, each request's queue wait, and the seconds
+    the worker spent assembling it, dispatching it, waiting for the
+    device and replying; see ``GenerationService``), plus the server's
+    static config.
 ``POST /generate``
     JSON body. The noise is drawn on the card from ``seed``
     (deterministic per seed)::

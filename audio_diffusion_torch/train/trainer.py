@@ -41,6 +41,7 @@ from torch import Tensor
 
 from ..parallel.mesh import check_mesh
 from ..parallel.train_step import TrainState, gather_slices, make_train_step
+from ..spans import span
 
 __all__ = ["Trainer", "TrainerConfig", "ClipAdamW", "lr_schedule"]
 
@@ -508,6 +509,36 @@ class Trainer:
             return x.to(device, non_blocking=True)
         return x
 
+    def _next_batch(self, it, kk: int, k: int, cond: Dict):
+        """The next call's batch on the device (``kk`` batches stacked
+        when ``kk > 1``) and its conditioning."""
+        if kk == 1 and k > 1:
+            batch = next(it)
+        elif k > 1:
+            items = [next(it) for _ in range(kk)]
+            if isinstance(items[0], tuple):
+                raise ValueError(
+                    "per-batch conditioning ((x, cond) batches) "
+                    "requires steps_per_call=1 — the K-step call "
+                    "passes one cond to every step")
+            if isinstance(items[0], Tensor):
+                # Device batches (data.DeviceCorpus): stack on the
+                # device, not through the host.
+                batch = torch.stack(items)
+            else:
+                batch = np.stack(items)
+        else:
+            batch = next(it)
+
+        # Per-batch conditioning: iterators may yield
+        # (x, {"embedding": ...}) tuples, merged over **cond.
+        step_cond = cond
+        if isinstance(batch, tuple):
+            batch, batch_cond = batch
+            step_cond = {**cond, **{n: self._on_device(v) for n, v
+                                    in batch_cond.items()}}
+        return self._on_device(batch), step_cond
+
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.model.device.type == "cuda":
@@ -536,32 +567,8 @@ class Trainer:
         try:
             for i in range(num_calls + tail):
                 kk = k if i < num_calls else 1
-                if kk == 1 and k > 1:
-                    batch = next(it)
-                elif k > 1:
-                    items = [next(it) for _ in range(kk)]
-                    if isinstance(items[0], tuple):
-                        raise ValueError(
-                            "per-batch conditioning ((x, cond) batches) "
-                            "requires steps_per_call=1 — the K-step call "
-                            "passes one cond to every step")
-                    if isinstance(items[0], Tensor):
-                        # Device batches (data.DeviceCorpus): stack on the
-                        # device, not through the host.
-                        batch = torch.stack(items)
-                    else:
-                        batch = np.stack(items)
-                else:
-                    batch = next(it)
-
-                # Per-batch conditioning: iterators may yield
-                # (x, {"embedding": ...}) tuples, merged over **cond.
-                step_cond = cond
-                if isinstance(batch, tuple):
-                    batch, batch_cond = batch
-                    step_cond = {**cond, **{n: self._on_device(v) for n, v
-                                            in batch_cond.items()}}
-                batch = self._on_device(batch)
+                with span("train.data"):
+                    batch, step_cond = self._next_batch(it, kk, k, cond)
 
                 if (cfg.profile_dir is not None
                         and step == cfg.profile_start_step):
@@ -592,8 +599,9 @@ class Trainer:
 
                 if self._rank0 and (step % cfg.log_every < kk
                                     or i == num_calls + tail - 1):
-                    loss = float(metrics["loss"])
-                    gnorm = float(metrics["grad_norm"])
+                    with span("train.wait"):
+                        loss = float(metrics["loss"])
+                        gnorm = float(metrics["grad_norm"])
                     now = time.perf_counter()
                     sps = (step - step_last_log) / max(now - t_last, 1e-9)
                     t_last, step_last_log = now, step

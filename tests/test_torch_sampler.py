@@ -15,10 +15,13 @@ import torch
 
 from audio_diffusion_tpu import DiffusionModel as JaxDiffusionModel
 from audio_diffusion_tpu import UNetV0 as JaxUNetV0
-from audio_diffusion_torch import (DiffusionModel, DPMSampler,
-                                   LinearSchedule, SDESampler, UNetV0,
-                                   UniformLambdaSchedule, VSampler,
-                                   params_from_jax)
+from torch.autograd.profiler import record_function
+from torch.profiler import ProfilerActivity, profile
+
+from audio_diffusion_torch import (ARVSampler, DiffusionAR, DiffusionModel,
+                                   DPMSampler, LinearSchedule, SDESampler,
+                                   UNetV0, UniformLambdaSchedule, VSampler,
+                                   params_from_jax, spans)
 from audio_diffusion_torch.diffusion import alpha_beta
 
 torch.set_num_threads(2)
@@ -132,3 +135,108 @@ def test_unroll_is_accepted_and_ignored():
         warnings.simplefilter("error")
         got = model.sample(noise, num_steps=4, unroll=2)
     assert torch.equal(got, want)
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _named(prof, name):
+    return sorted((e for e in prof.events() if e.name == name),
+                  key=lambda e: e.time_range.start)
+
+
+@pytest.mark.parametrize("case", ["off", "on", "open_across_start",
+                                  "open_across_stop", "flag"])
+def test_span_helper(case, monkeypatch):
+    """``spans.span`` is a shared no-op with no profiler running (no
+    ``record_function`` made), a ``record_function`` while one runs, and
+    raises nothing when the profiler starts or stops while it is open; the
+    profiler's process-wide flag it reads follows ``start``/``stop``."""
+    made = []
+
+    def counting(name):
+        made.append(name)
+        return record_function(name)
+
+    monkeypatch.setattr(spans, "record_function", counting)
+    x = torch.ones(8)
+    if case == "off":
+        assert not spans.profiling()
+        first, second = spans.span("t.a"), spans.span("t.b")
+        assert first is second
+        with first:
+            x.add(1)
+        assert made == []
+    elif case == "on":
+        with _cpu_profile() as prof:
+            assert spans.profiling()
+            with spans.span("t.on"):
+                x.add(1)
+        assert made == ["t.on"] and len(_named(prof, "t.on")) == 1
+    elif case == "open_across_start":
+        prof = _cpu_profile()
+        with spans.span("t.early"):
+            prof.start()
+            x.add(1)
+        prof.stop()
+        assert made == [] and _named(prof, "t.early") == []
+    elif case == "open_across_stop":
+        prof = _cpu_profile()
+        prof.start()
+        with spans.span("t.late"):
+            x.add(1)
+            prof.stop()
+        assert made == ["t.late"] and len(_named(prof, "t.late")) == 1
+    else:
+        import torch.autograd.profiler as autograd_profiler
+
+        assert autograd_profiler._is_profiler_enabled is False
+        prof = _cpu_profile()
+        prof.start()
+        assert autograd_profiler._is_profiler_enabled is True
+        prof.stop()
+        assert autograd_profiler._is_profiler_enabled is False
+        assert not spans.profiling()
+
+
+@pytest.mark.parametrize("sampler", ["v", "dpm", "sde", "ar"])
+def test_one_sampler_step_span_per_step(sampler):
+    """Under a CPU profiler, each step of every sampler loop is one
+    ``sampler.step`` range, in order, holding that step's net pass; without
+    a profiler the loop makes no range."""
+    steps = 2
+    if sampler == "ar":
+        model = DiffusionAR(net_t=UNetV0, in_channels=1, length=128,
+                            num_splits=4, channels=[8, 16], factors=[1, 2],
+                            items=[1, 1], device="cpu")
+        current = torch.randn(1, 1, 128,
+                              generator=torch.Generator().manual_seed(0))
+        sigmas = ARVSampler(None, 1, 128, 4).get_sigmas_ladder(1, steps)
+
+        def run():
+            return model.sampler.sample_loop(model.params, current, sigmas)
+    else:
+        t = {"v": VSampler, "dpm": DPMSampler, "sde": SDESampler}[sampler]
+        model = DiffusionModel(net_t=UNetV0, device="cpu", sampler_t=t,
+                               **CFG)
+        noise = torch.randn(1, 2, LENGTH,
+                            generator=torch.Generator().manual_seed(0))
+
+        def run():
+            kw = ({"generator": torch.Generator().manual_seed(1)}
+                  if sampler == "sde" else {})
+            return model.sample(noise, num_steps=steps, **kw)
+
+    want = run()
+    with _cpu_profile() as prof:
+        with record_function("t.sample"):
+            got = run()
+    assert torch.equal(got, want)
+    ranges = _named(prof, "sampler.step")
+    assert len(ranges) == steps
+    outer = _named(prof, "t.sample")[0]
+    assert all(r.cpu_parent is not None and r.cpu_parent.id == outer.id
+               for r in ranges)
+    assert ranges[0].time_range.end <= ranges[1].time_range.start
+    assert all(r.cpu_children for r in ranges)

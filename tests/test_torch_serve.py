@@ -362,3 +362,64 @@ def test_service_worker_runs_in_inference_mode(pair):
     finally:
         del model.sample
     assert seen == {"inference": True, "thread": True}
+
+
+class _StubModel:
+    """A model whose sample halves its input."""
+
+    device = torch.device("cpu")
+
+    def sample(self, x, num_steps, **kwargs):
+        return x * 0.5
+
+
+STAGES = ("assemble_s", "dispatch_s", "device_wait_s", "reply_s")
+
+
+@pytest.mark.parametrize("case", ["timeline", "capped", "profiled"])
+def test_stats_recent_batches(case):
+    """``stats["recent_batches"]``: one JSON-ready dict per batch, oldest
+    first, with each request's queue wait, the four stage times and the
+    batch's steps; at most the last 64; ``profiled`` where a torch profiler
+    ran at the batch's start."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x = np.ones((2, 8), np.float32)
+    if case == "timeline":
+        with GenerationService(_StubModel(), num_steps=3, batch_size=2,
+                               max_wait_ms=20.0) as svc:
+            futs = [svc.submit(x) for _ in range(3)]
+            outs = [f.result(timeout=30) for f in futs]
+        assert all(np.array_equal(o, x * 0.5) for o in outs)
+        stats = json.loads(json.dumps(svc.stats))
+        recent = stats["recent_batches"]
+        assert stats["batches"] == len(recent) >= 2
+        assert sum(b["requests"] for b in recent) == 3
+        for b in recent:
+            assert b["num_steps"] == 3 and b["profiled"] is False
+            assert b["requests"] + b["padded"] == 2
+            assert len(b["queue_wait_s"]) == b["requests"]
+            assert all(0.0 <= w < 30.0 for w in b["queue_wait_s"])
+            assert all(isinstance(b[k], float) and 0.0 <= b[k] < 30.0
+                       for k in STAGES)
+    elif case == "capped":
+        cap = GenerationService.RECENT_BATCHES
+        with GenerationService(_StubModel(), batch_size=1,
+                               max_wait_ms=1.0) as svc:
+            for f in [svc.submit(x, num_steps=i + 1)
+                      for i in range(cap + 6)]:
+                f.result(timeout=30)
+        recent = svc.stats["recent_batches"]
+        assert svc.stats["batches"] == cap + 6 and len(recent) == cap
+        assert [b["num_steps"] for b in recent] == list(range(7, cap + 7))
+    else:
+        with GenerationService(_StubModel(), num_steps=2, batch_size=1,
+                               max_wait_ms=1.0) as svc:
+            svc.submit(x).result(timeout=30)
+            with profile(activities=[ProfilerActivity.CPU]):
+                svc.submit(x).result(timeout=30)
+            svc.submit(x).result(timeout=30)
+        assert [b["profiled"] for b in svc.stats["recent_batches"]] == [
+            False, True, False]

@@ -138,6 +138,21 @@ def test_generate_concurrent_requests_batch_and_are_deterministic(
     assert stats["requests"] >= 3 and stats["batches"] >= 2
 
 
+def test_stats_serves_the_recent_batches(http_server):
+    """``/stats`` passes the service's batch timeline through as JSON."""
+    code, _, _ = _post(http_server + "/generate",
+                    json.dumps({"seed": 5}).encode())
+    assert code == 200
+    code, body = _get(http_server + "/stats")
+    assert code == 200
+    recent = json.loads(body)["recent_batches"]
+    assert recent and recent[-1]["num_steps"] == 2
+    assert set(recent[-1]) == {
+        "requests", "padded", "num_steps", "profiled", "queue_wait_s",
+        "assemble_s", "dispatch_s", "device_wait_s", "reply_s"}
+    assert len(recent[-1]["queue_wait_s"]) == recent[-1]["requests"]
+
+
 def test_generate_num_steps_and_length_override(http_server):
     code, headers, body = _post(
         http_server + "/generate",

@@ -341,3 +341,36 @@ def test_fit_with_cond_batches_device_corpus_and_profile(tmp_path):
     m = t.fit(iter(dc), num_steps=4)
     assert np.isfinite(float(m["loss"])) and int(t.state.step) == 4
     assert [p.name for p in prof.iterdir()] == ["trace_steps_2_4.json"]
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_fit_spans_sit_beside_the_optimizer(steps_per_call):
+    """Under a CPU profiler a ``fit`` call shows ``train.data`` before the
+    step and ``train.wait`` after it, in order, and neither encloses the
+    optimizer: inside an outer range, ``Optimizer.step#`` stays a direct
+    child of it, as the spans do."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    t = Trainer(DiffusionModel(**TINY),
+                TrainerConfig(steps_per_call=steps_per_call, log_every=100,
+                              max_grad_norm=1.0, ema_decay=0.9),
+                log_fn=lambda s: None)
+    t.fit(tone_batches(), num_steps=steps_per_call)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("t.outer"):
+            t.fit(tone_batches(), num_steps=steps_per_call)
+    events = list(prof.events())
+    outer = [e for e in events if e.name == "t.outer"]
+    assert len(outer) == 1
+    children = sorted(outer[0].cpu_children, key=lambda e: e.time_range.start)
+    names = [c.name for c in children]
+    opt = [i for i, n in enumerate(names) if n.startswith("Optimizer.step#")]
+    assert names.count("train.data") == 1 and names.count("train.wait") == 1
+    assert len(opt) == steps_per_call
+    assert names.index("train.data") < opt[0] and \
+        opt[-1] < names.index("train.wait")
+    inner = [e for e in events if e.name.startswith(("Optimizer.step#",
+                                                     "train."))]
+    assert all(e.cpu_parent is not None and e.cpu_parent.id == outer[0].id
+               for e in inner)
