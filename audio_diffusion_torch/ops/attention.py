@@ -2,12 +2,24 @@
 audio_diffusion_tpu/ops/attention.py), channels-last [B, L, C].
 
 The JAX package calls ``jax.nn.dot_product_attention`` (XLA, not a Pallas
-kernel), so attention here is plain PyTorch in the same form: f32 logits,
+kernel), so attention here keeps its form: f32 logits of the bf16 products,
 scale 1/√head_features, f32 softmax, probabilities rounded to the value
 type, then the product with the values. ``scaled_dot_product_attention`` is
 not used, so the rounding points match the JAX package's. Cross-attention
 takes its keys and values from a context [B, N, context_features] (the
 text embedding), with no key-padding mask, as in the JAX package.
+
+Two routes, chosen from what the inputs show (``ops/kernels/attention.py``).
+Without a gradient (sampling and serving run under ``inference_mode``, a
+teacher under ``no_grad``) the LayerNorms and the attention core take the
+fast path: on the card, one ``F.layer_norm`` launch per LayerNorm and one
+launch of the core's kernel, which reads q, k and v through their strides
+from the projections' outputs. The core's kernel takes bf16 and head widths
+that are multiples of 16 up to 128; other widths and float32 run the core's
+plain form, and a LayerNorm whose parameters are not in its input's dtype
+runs its plain form. With a gradient (training) both run the plain form
+under autograd. On a CPU tensor the fast path is the plain form too, so the
+CPU results are the same bits either way.
 
 Under a length shard (``parallel.comm.length_shard``) an attention item
 gathers its input's whole sequence, runs unchanged on every rank and keeps
@@ -23,17 +35,10 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ..parallel import comm
+from .kernels import attention as attention_kernels
 from .layers import Dense, LayerNorm
 
 __all__ = ["Attention", "FeedForward", "AttentionItem", "CrossAttentionItem"]
-
-
-def _dot_product_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-    """q, k, v [B, H, S, D] -> [B, H, S, D]."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
 
 
 class Attention(nn.Module):
@@ -68,15 +73,8 @@ class Attention(nn.Module):
             q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         else:
             q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
-
-        def split(t):
-            b, s, _ = t.shape
-            return t.reshape(b, s, self.heads, self.head_features).transpose(1, 2)
-
-        out = _dot_product_attention(split(q), split(k), split(v))
-        b, s, _ = x.shape
-        out = out.transpose(1, 2).reshape(b, s, self.heads * self.head_features)
-        return self.to_out(out)
+        core = attention_kernels.attention_core_route(q, k, v, self.heads)
+        return self.to_out(core(q, k, v, self.heads))
 
 
 class FeedForward(nn.Module):
@@ -94,7 +92,9 @@ class FeedForward(nn.Module):
 
 
 class AttentionItem(nn.Module):
-    """Pre-LN self-attention + pre-LN feed-forward, both residual."""
+    """Pre-LN self-attention + pre-LN feed-forward, both residual. Without
+    a gradient, on the card, its LayerNorms and attention core are three
+    kernel launches (the module docstring says when each route applies)."""
 
     def __init__(self, features: int, heads: int, head_features: int,
                  context_features: Optional[int] = None, dtype=None,

@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from .kernels import attention as attention_kernels
+
 __all__ = ["Dense", "LayerNorm", "GroupNorm", "lecun_normal_", "new_param",
            "init_module"]
 
@@ -87,14 +89,15 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: Tensor) -> Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp(xf.square().mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.float()) \
-            + self.bias.float()
+        """``kernels.attention.layer_norm_route`` picks the route: without a
+        gradient (grad mode off, or nothing here requires one) the fast
+        path (one ``F.layer_norm`` launch on a CUDA tensor) where input,
+        parameters and output share a dtype; otherwise, and under autograd,
+        the plain form. On a CPU tensor both are the plain form."""
         out_dtype = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)
-        return y.to(out_dtype)
+        norm = attention_kernels.layer_norm_route(x, self.scale, self.bias,
+                                                  out_dtype)
+        return norm(x, self.scale, self.bias, self.eps, out_dtype)
 
 
 class GroupNorm(nn.Module):

@@ -11,8 +11,8 @@ parameters), through ``DiffusionModel.loss`` and ``make_train_step``. Then
 the text-conditional net (``presets.TEXT_CONDITIONAL_48K`` with the stub
 text encoder: cross-attention at levels 3-8, classifier-free guidance): a
 guided 50-step sample of one caption (``text=``, guidance 5, the item at
-batch 2), the same with encoder reuse (k = 2), the cross-attention's device
-time from a short profile, and Adam steps at batch 8 with ``embedding=``
+batch 2), the same with encoder reuse (k = 2), the attention kernels'
+launches, and Adam steps at batch 8 with ``embedding=``
 from eight captions and embedding dropout 0.1. Before the flagship, a
 small conditioned net (cross-attention, context injection, CFG) is held on
 the card against the CPU, guided, with and without encoder reuse. Then the
@@ -93,6 +93,21 @@ the forward kernel runs again in the backward's recompute; 42 backward).
 (6,300 = 42 x 50 x 3), ``quant_launches`` the int8 sample's and
 ``artifact_launches`` the exported sampler's (2,100 each); the
 ``batch8_*`` keys are the per-pass sums at batch 8.
+The attention items' fast routes (``attention_kernels_vs_plain``): the
+core's kernel and the LayerNorm's library call (``F.layer_norm``, through
+the port's wrapper) against their plain versions at every shape a README
+pass runs them at (self-attention at S = N = 1,024 ... 128, cross-attention
+at S = 4,096 ... 128 over 64 keys; the uncond pass at batch 1 and 8, the
+guided text pass at 2), timed beside the plain version and the library's
+call (``F.scaled_dot_product_attention``, which the port does not run: it
+rounds elsewhere than the JAX package; and the bare ``F.layer_norm``).
+Their rows in the summary, ``attention_core`` (route ``cuda``) and
+``layer_norm`` (route ``library``), take the forward row's keys per uncond
+pass at batch 1, with ``guided_*`` and ``batch8_*`` for the other two
+passes, ``library_host_ms`` and ``max_rel_l2_err``; ``launches`` counts the
+flagship's 50-step sample (1,200 cores and 2,400 LayerNorms: 24 attention
+items per pass) and ``guided_launches`` the guided text sample's (2,800
+and 5,600: 56 items).
 Distillation and evaluation: ``artifact_reuse_launches`` counts the
 ``encoder_reuse=2`` artifact's sample (1,575), ``distill_launches_per_step``
 a halving step of ``ProgressiveDistiller`` on the flagship at batch 8
@@ -161,7 +176,11 @@ plain version round at the same points, but a sum that lands on the other
 side of a rounding boundary moves conv 1's output by one ulp, and the
 modulation's GroupNorm can scale that by up to about two); a second bf16
 call on the same inputs must give the same bits (split-K sums its partials
-in a fixed order). The full-width
+in a fixed order). The attention core in bf16: relative L2 ≤ 2^-10 and
+max-abs ≤ 2^-5·max|y| (its sums run in another order, so a probability or
+an output may round to the neighbouring bf16 value; logits rounded to bf16
+read 4.4e-3 and more); the LayerNorm max-abs ≤ 2^-7·max|y| (one ulp); a
+rerun gives the same bits. The full-width
 forward, kernel path vs plain path in bf16, must agree to a relative L2
 error ≤ 5e-2 (about a hundred chained bf16 roundings).
 
@@ -205,6 +224,20 @@ REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:172"
 BACKWARD_SOURCE = "audio_diffusion_torch/csrc/resnet_item_bwd.cu"
 WGRAD_SOURCE = "audio_diffusion_torch/csrc/wgrad_sm90.cuh"
 BACKWARD_REPLACES = "audio_diffusion_tpu/ops/kernels/resnet.py:193-219"
+# The attention core's kernel and the LayerNorm's library call. No Pallas
+# kernel: XLA runs both in the JAX package.
+ATTENTION_SOURCE = "audio_diffusion_torch/csrc/attention.cu"
+LN_SOURCE = "torch.nn.functional.layer_norm"
+CORE_REPLACES = "audio_diffusion_tpu/ops/attention.py:31-34 (XLA ops)"
+LN_REPLACES = "flax nn.LayerNorm in audio_diffusion_tpu/ops/attention.py (XLA ops)"
+# The README nets' attention: 8 heads of 64. The bars against the plain
+# versions (tests/test_torch_cuda.py gives their reasons): the core's
+# relative L2 error and largest error over the largest output, the
+# LayerNorm's largest.
+ATTN_HEADS, ATTN_FEATURES = 8, 64
+ATTN_REL_L2, ATTN_MAX_ABS, LN_MAX_ABS = 2.0 ** -10, 2.0 ** -5, 2.0 ** -7
+# The summary's per-pass keys of a kernel's row.
+PER_PASS_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
 GRAD_NAMES = ("x", "gn1s", "gn1b", "k1", "c1b", "gn2s", "gn2b", "k2", "c2b",
               "mods", "modb", "mgs", "mgb")
 TRAIN_BATCH = 8
@@ -1262,90 +1295,143 @@ def phase_sample_text(model, noise):
     return launches, reuse_launches
 
 
-def phase_attention_profile(model, noise, steps: int = 2):
-    """Device time of the cross-attention items (and of the self-attention
-    items beside them) over ``steps`` guided net calls at batch 1, each item
-    wrapped in a profiler range by forward hooks; the time of a range is its
-    kernels' device time. A second, unprofiled run times each item between
-    CUDA events recorded by the same hooks (its span on the stream, gaps
-    the host leaves included)."""
+def attention_shapes(cross: bool):
+    """The attention items of one pass of the README nets: (kind, C, S, N,
+    items per pass), self-attention at the levels of ``attentions``, and
+    with ``cross`` the text net's cross-attention over the embedding's keys
+    at the levels of ``cross_attentions``; each level's items down and up."""
+    from audio_diffusion_torch import presets
+
+    cfg = presets.TEXT_CONDITIONAL_48K
+    shapes = [("self", c, length, length, 2 * n)
+              for (c, length), n, a in zip(LEVELS, ITEMS, cfg["attentions"])
+              if a]
+    if cross:
+        shapes += [("cross", c, length, cfg["embedding_max_length"], 2 * n)
+                   for (c, length), n, a in zip(LEVELS, ITEMS,
+                                                cfg["cross_attentions"])
+                   if a]
+    return shapes
+
+
+def attention_item_rows(flush, shape, batch, gen):
+    """The attention core and the LayerNorm of one attention item's shape at
+    ``batch``, bf16, inputs as the sampling path gives them (q, k and v
+    chunks of the packed projection for self-attention, the embedding's
+    keys for cross-attention; LayerNorm parameters cast to bf16): each fast
+    route (the core's kernel, the LayerNorm's ``F.layer_norm`` through the
+    port's wrapper) against its plain version (errors, a rerun's bits) and
+    timed beside it and beside the library's call (``F.scaled_dot_product_
+    attention``, timed only; the bare ``F.layer_norm``). Returns (core row,
+    LayerNorm row)."""
     import torch
-    from audio_diffusion_torch import cast_inference_params
-    from audio_diffusion_torch.ops.attention import (AttentionItem,
-                                                     CrossAttentionItem)
-    from torch.profiler import ProfilerActivity, profile, record_function
+    import torch.nn.functional as F
+    from audio_diffusion_torch.ops.kernels.attention import (
+        attention_core, attention_core_reference, layer_norm,
+        layer_norm_reference)
 
-    params = cast_inference_params(model.params, torch.bfloat16)
-    emb = torch.as_tensor(model.net.text_encoder(CAPTIONS[:1]),
-                          device=model.device)
-    sig = torch.full((1,), 0.5, device=model.device)
-    handles, counts = [], {"cross_attention": 0, "self_attention": 0}
-    spans, timing = {k: [] for k in counts}, []
-    for m in model.net.module.modules():
-        if type(m) in (CrossAttentionItem, AttentionItem):
-            name = ("cross_attention" if type(m) is CrossAttentionItem
-                    else "self_attention")
-            counts[name] += 1
-            ranges = []
+    kind, c, s, n, items = shape
+    h, d = ATTN_HEADS, ATTN_FEATURES
+    bf16 = torch.bfloat16
 
-            def enter(mod, args, name=name, ranges=ranges):
-                ranges.append(record_function(name).__enter__())
-                if timing:
-                    spans[name].append(torch.cuda.Event(enable_timing=True))
-                    spans[name][-1].record()
+    def f(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                + offset).to(bf16)
 
-            def leave(mod, args, out, name=name, ranges=ranges):
-                ranges.pop().__exit__(None, None, None)
-                if timing:
-                    spans[name].append(torch.cuda.Event(enable_timing=True))
-                    spans[name][-1].record()
-
-            handles += [m.register_forward_pre_hook(enter),
-                        m.register_forward_hook(leave)]
-
-    def run():
+    if kind == "self":
+        q, k, v = f(batch, s, 3 * h * d).chunk(3, dim=-1)
+    else:
+        q, k, v = f(batch, s, h * d), f(batch, n, h * d), f(batch, n, h * d)
+    x = f(batch, s, c, scale=3.0, offset=0.5)
+    scale, bias = f(c, scale=0.2, offset=1.0), f(c, scale=0.2)
+    qh, kh, vh = (t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v))
+    calls = {
+        "attention_core": (lambda: attention_core(q, k, v, h),
+                           lambda: attention_core_reference(q, k, v, h),
+                           lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+        "layer_norm": (lambda: layer_norm(x, scale, bias, 1e-6, bf16),
+                       lambda: layer_norm_reference(x, scale, bias, 1e-6,
+                                                    bf16),
+                       lambda: F.layer_norm(x, (c,), scale, bias, 1e-6))}
+    core_flops = 4 * batch * h * s * n * d
+    sizes = {"attention_core": (2 * (2 * batch * s + 2 * batch * n) * h * d,
+                                core_flops, items),
+             "layer_norm": (2 * (2 * batch * s * c + 2 * c), 0, 2 * items)}
+    rows = []
+    for name, (kernel, plain, library) in calls.items():
         with torch.inference_mode():
-            for _ in range(steps):
-                model.net.apply(params, noise, sig, embedding=emb,
-                                embedding_scale=GUIDANCE)
+            got, again, want = kernel(), kernel(), plain()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {kind} S={s} batch {batch}: two "
+                                     "calls on the same inputs differ")
+            diff, want = got.float() - want.float(), want.float()
+            err, ymax = diff.abs().max().item(), want.abs().max().item()
+            rel = (diff.norm() / want.norm()).item()
+            times = {key: cuda_ms(fn, flush) for key, fn in
+                     (("kernel_ms", kernel), ("plain_ms", plain),
+                      ("library_ms", library))}
+            hosts = {key: sorted(host_ms(fn) for _ in range(5))[2]
+                     for key, fn in (("kernel_host_ms", kernel),
+                                     ("library_host_ms", library))}
+        nbytes, flops, per_pass = sizes[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row = dict(phase="attention_kernels_vs_plain", kernel=name, kind=kind,
+                   channels=c, length=s, keys=n, batch=batch, dtype="bfloat16",
+                   max_abs_err=err, max_abs_out=ymax, max_rel_err=err / ymax,
+                   rel_l2_err=rel, bit_identical_rerun=True, **times, **hosts,
+                   bound_ms=max(bytes_ms, flops_ms),
+                   bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                   bytes=nbytes, flops=flops, items_per_forward=per_pass)
+        emit(row)
+        if name == "attention_core":
+            ok = rel <= ATTN_REL_L2 and err <= ATTN_MAX_ABS * ymax
+        else:
+            ok = err <= LN_MAX_ABS * ymax
+        if not ok:
+            raise AssertionError(f"{name} {kind} S={s} batch {batch}: max abs "
+                                 f"{err} of {ymax}, relative L2 {rel}")
+        rows.append(row)
+    return rows
 
-    try:
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        if model.device.type == "cuda":
-            timing.append(True)
-            run()
-            torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    span_ms = {k: sum(a.elapsed_time(b) for a, b in zip(v[::2], v[1::2]))
-               / steps for k, v in spans.items()}
-    # A range's host-side event sums the kernels its ops launched; the
-    # device-side copy of the range spans first to last kernel, gaps and
-    # all, and is left out.
-    device_us = {k: 0.0 for k in counts}
-    busy_us = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            if e.name in device_us:
-                device_us[e.name] += e.device_time_total
-        elif not getattr(e, "is_user_annotation", False):
-            busy_us += e.device_time_total
-    emit(dict(phase="attention_profile", steps=steps, batch=1,
-              item_batch=GUIDED_BATCH, dtype="bfloat16",
-              items_per_pass=counts,
-              device_ms_per_step={k: v / 1e3 / steps
-                                  for k, v in device_us.items()},
-              event_span_ms_per_step=span_ms,
-              all_kernels_ms_per_step=busy_us / 1e3 / steps))
-    if sum(device_us.values()) > busy_us:
-        raise AssertionError(f"attention profile: the ranges' kernels "
-                             f"({device_us}) exceed all kernels ({busy_us})")
+
+def phase_attention_kernels_vs_plain(flush):
+    """The attention items' kernels against their plain versions at every
+    shape a README pass runs them at: the uncond pass at batch 1 and at the
+    service's 8, the guided text pass (self- and cross-attention) at batch
+    2. Returns {pass name: (core rows, LayerNorm rows)}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    passes = {}
+    for name, cross, batch in (("uncond", False, 1),
+                               ("guided", True, GUIDED_BATCH),
+                               ("batch8", False, SERVE_BATCH)):
+        pairs = [attention_item_rows(flush, shape, batch, gen)
+                 for shape in attention_shapes(cross)]
+        passes[name] = tuple(list(rows) for rows in zip(*pairs))
+    return passes
+
+
+def attention_launches(phase, model, noise, cross, **kw):
+    """The attention kernels' launches over one ``NUM_STEPS`` sample,
+    counters set to 0 just before: one core and two LayerNorms per attention
+    item and pass, or an AssertionError. Returns (cores, LayerNorms)."""
+    from audio_diffusion_torch.ops.kernels.attention import (attention_core,
+                                                             layer_norm)
+
+    items = sum(shape[-1] for shape in attention_shapes(cross))
+    attention_core.launches = layer_norm.launches = 0
+    model.sample(noise, num_steps=NUM_STEPS, **kw)
+    got = (attention_core.launches, layer_norm.launches)
+    expected = (items * NUM_STEPS, 2 * items * NUM_STEPS)
+    emit(dict(phase=f"{phase}_attention_launches", steps=NUM_STEPS,
+              attention_items_per_pass=items, launches=list(got),
+              expected_launches=list(expected)))
+    if got != expected:
+        raise AssertionError(f"{phase}: (cores, LayerNorms) launched {got}, "
+                             f"expected {expected}")
+    return got
 
 
 def phase_profile(name, run, **extra):
@@ -4078,6 +4164,49 @@ def phase_nccl_world1():
         raise AssertionError(f"nccl_world1: backend {backend}, bit {bit}")
 
 
+def summary(name, source, replaces, level_rows, **counts):
+    """A kernel's row of the summary: each shape's bf16 numbers times its
+    items per pass, summed over ``level_rows`` (a pass of the net)."""
+    bf16 = [r for r in level_rows if r["dtype"] == "bfloat16"]
+    per_pass = lambda key: sum(  # noqa: E731
+        r[key] * r["items_per_forward"] for r in bf16)
+    bytes_ms = per_pass("bytes") / HBM_BYTES_PER_S * 1e3
+    flops_ms = per_pass("flops") / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **counts,
+            "max_abs_err": max(r["max_abs_err"] for r in bf16),
+            "max_rel_err": max(r.get("max_rel_err", r["max_abs_err"]
+                                     / r.get("max_abs_out", 1.0))
+                               for r in bf16),
+            "ms": per_pass("kernel_ms"),
+            "host_ms": per_pass("kernel_host_ms"),
+            "plain_ms": per_pass("plain_ms"),
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": per_pass("library_ms")}
+
+
+def attention_summary(name, route, source, replaces, index, rows_by_pass,
+                      launches):
+    """The summary's row of the attention core (``index`` 0) or the
+    LayerNorm (1): per uncond pass at batch 1, ``guided_*`` per guided text
+    pass at batch 2, ``batch8_*`` per uncond pass at batch 8; ``launches``
+    (uncond sample, guided sample)."""
+    keys = PER_PASS_KEYS + ("host_ms",)
+    per_pass = {key: summary(name, source, replaces, rows[index])
+                for key, rows in rows_by_pass.items()}
+    return {**per_pass["uncond"], "route": route, "launches": launches[0],
+            "guided_launches": launches[1],
+            "library_host_ms": sum(r["library_host_ms"] * r["items_per_forward"]
+                                   for r in rows_by_pass["uncond"][index]),
+            "max_rel_l2_err": max(r["rel_l2_err"] for rows in
+                                  rows_by_pass.values()
+                                  for r in rows[index]),
+            **{f"{key}_{k}": per_pass[key][k]
+               for key in ("guided", "batch8")
+               for k in keys}}
+
+
 def main() -> int:
     import torch
 
@@ -4118,6 +4247,7 @@ def main() -> int:
     (enc_rows, batch16_rows, enc_bwd_rows, enc_bwd_train_rows,
      batch16_bwd_rows) = phase_kernel_vs_plain_tasks(flush)
     batch8_rows = phase_kernel_vs_plain_batch8(flush)
+    attention_rows = phase_attention_kernels_vs_plain(flush)
     del flush
     phase_small_reference()
     phase_train_small()
@@ -4166,6 +4296,7 @@ def main() -> int:
     if out.shape != noise.shape or not torch.isfinite(out).all():
         raise AssertionError("sample: bad shape or non-finite values")
     unsharded = out.cpu()
+    attn_launches = attention_launches("sample", model, noise, cross=False)
     phase_profile("profile", lambda: model.sample(noise, num_steps=2),
                   steps=2)
     phase_operator_dispatch(model, noise)
@@ -4209,7 +4340,9 @@ def main() -> int:
     # then the T5 encoder stack and a guided DPM sample through it.
     model = build_text_model(torch)
     text_launches = phase_sample_text(model, noise)
-    phase_attention_profile(model, noise)
+    text_attn_launches = attention_launches(
+        "sample_text", model, noise, cross=True, text=CAPTIONS[:1],
+        embedding_scale=GUIDANCE)
     embedding = torch.as_tensor(model.net.text_encoder(CAPTIONS),
                                 device=model.device)
     text_train_launches = phase_train(model, "train_text",
@@ -4294,27 +4427,6 @@ def main() -> int:
     staged = [r for r in small_ranks[0]["kernel_sharded_vs_plain"]
               if r["dtype"] == "bfloat16"]
 
-    # Per pass of the net at batch 1: each level's per-item bf16 time times
-    # its items per pass.
-    def summary(name, source, replaces, level_rows, **counts):
-        bf16 = [r for r in level_rows if r["dtype"] == "bfloat16"]
-        per_pass = lambda key: sum(  # noqa: E731
-            r[key] * r["items_per_forward"] for r in bf16)
-        bytes_ms = per_pass("bytes") / HBM_BYTES_PER_S * 1e3
-        flops_ms = per_pass("flops") / PEAK_FLOPS["bfloat16"] * 1e3
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, **counts,
-                "max_abs_err": max(r["max_abs_err"] for r in bf16),
-                "max_rel_err": max(r.get("max_rel_err", r["max_abs_err"]
-                                         / r.get("max_abs_out", 1.0))
-                                   for r in bf16),
-                "ms": per_pass("kernel_ms"),
-                "host_ms": per_pass("kernel_host_ms"),
-                "plain_ms": per_pass("plain_ms"),
-                "bound_ms": max(bytes_ms, flops_ms),
-                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-                "library_ms": per_pass("library_ms")}
-
     def train_sums(train_rows, prefix):
         keys = ("kernel_ms", "library_ms", "bound_ms") + (
             ("plain_ms",) if all("plain_ms" in r for r in train_rows) else ())
@@ -4334,8 +4446,6 @@ def main() -> int:
                          vocoder_launches=voc_launches,
                          ae_encode_launches=enc_launches,
                          ae_decode_launches=dec_launches)
-    per_pass_keys = ("ms", "plain_ms", "bound_ms", "library_ms",
-                     "max_abs_err")
     print(smi)
     emit({"kernels": [
         summary("fused_resnet_item", KERNEL_SOURCE, REPLACES, rows,
@@ -4355,11 +4465,11 @@ def main() -> int:
                 trainer_launches=trainer_launches[0],
                 remat_launches={k: v[0] for k, v in remat_launches.items()},
                 conv_source=CONV_SOURCE,
-                **{f"guided_batch_{k}": guided[k] for k in per_pass_keys},
-                **{f"nomod_{k}": nomod[k] for k in per_pass_keys},
+                **{f"guided_batch_{k}": guided[k] for k in PER_PASS_KEYS},
+                **{f"nomod_{k}": nomod[k] for k in PER_PASS_KEYS},
                 **{f"encoder_nomod_{k}": encoder_fwd[k]
-                   for k in per_pass_keys},
-                **{f"batch16_{k}": batch16_fwd[k] for k in per_pass_keys},
+                   for k in PER_PASS_KEYS},
+                **{f"batch16_{k}": batch16_fwd[k] for k in PER_PASS_KEYS},
                 serve_launches=serve_launches, quant_launches=quant_launches,
                 artifact_launches=artifact_launches,
                 artifact_reuse_launches=artifact_reuse_launches,
@@ -4377,7 +4487,7 @@ def main() -> int:
                     r["halo_copies_ms"] * 2 * ITEMS[r["level"]]
                     for r in staged),
                 **{f"batch8_{k}": batch8_fwd[k]
-                   for k in per_pass_keys + ("host_ms", "bound_by")}),
+                   for k in PER_PASS_KEYS + ("host_ms", "bound_by")}),
         summary("fused_resnet_item.backward", BACKWARD_SOURCE,
                 BACKWARD_REPLACES, bwd_rows, launches=train_launches[1],
                 launches_per_train_step=train_launches[1] // TRAIN_STEPS,
@@ -4397,7 +4507,7 @@ def main() -> int:
                 train_batch_bound_ms=sum(
                     r["bound_ms"] * r["items_per_forward"]
                     for r in bwd_train_rows),
-                **{f"nomod_{k}": nomod_bwd[k] for k in per_pass_keys},
+                **{f"nomod_{k}": nomod_bwd[k] for k in PER_PASS_KEYS},
                 **train_sums(nomod_bwd_train_rows, "nomod_train_batch"),
                 upsampler_train_launches=up_train_launches[1],
                 vocoder_train_launches=voc_train_launches[1],
@@ -4405,11 +4515,17 @@ def main() -> int:
                 trainer_launches=trainer_launches[1],
                 remat_launches={k: v[1] for k, v in remat_launches.items()},
                 **{f"encoder_nomod_{k}": encoder_bwd[k]
-                   for k in per_pass_keys},
+                   for k in PER_PASS_KEYS},
                 **train_sums(enc_bwd_train_rows, "encoder_nomod_train_batch"),
                 **train_sums(batch16_bwd_rows, "batch16"),
                 batch16_max_rel_err=max(r["max_rel_err"]
-                                        for r in batch16_bwd_rows))]})
+                                        for r in batch16_bwd_rows)),
+        attention_summary("attention_core", "cuda", ATTENTION_SOURCE,
+                          CORE_REPLACES, 0, attention_rows,
+                          (attn_launches[0], text_attn_launches[0])),
+        attention_summary("layer_norm", "library", LN_SOURCE, LN_REPLACES, 1,
+                          attention_rows,
+                          (attn_launches[1], text_attn_launches[1]))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -660,6 +660,169 @@ def test_export_on_card_records_the_operator(cuda_device, tmp_path):
                        model.sample(noise, num_steps=3))
 
 
+# The attention item's fast routes (ops/kernels/attention.py) against their
+# plain versions on the card, in bfloat16. The library's LayerNorm sums its
+# f32 moments by Welford's method and scales after normalising, so an output
+# may round to the neighbouring bf16 value: one ulp of the largest output,
+# 2^-7·max|y| (float32 output: 1e-5·max|y|). The attention core sums the logits and the
+# output in another order, so where an f32 sum lands on the other side of a
+# bf16 rounding boundary a probability or an output element rounds to its
+# neighbour (each is rounded once, after the normalisation, in both). On
+# these inputs such flips give a relative L2 error of about 1e-4 (the plain
+# core with float64 sums reads 4e-5 to 9e-5 against the f32 one), while
+# logits rounded to bf16 read 4.4e-3 to 4.9e-3 and one key tile left out
+# 0.26 and more: the bar is 2^-10 (about 1e-3). The largest error is held
+# to four ulps of the largest output, 2^-5·max|y| (float64 sums read at
+# most 2.6e-3·max|y|), which a fault confined to a few rows exceeds.
+# Reruns give the same bits.
+ATTN_SHAPES = ([("self", s, s) for s in (1024, 512, 256, 128)]
+               + [("cross", s, 64) for s in (4096, 2048, 1024, 512, 256, 128)])
+
+
+def attention_inputs(kind, s, n, b, heads, d, seed, device):
+    rs = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rs.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=torch.bfloat16)
+
+    if kind == "self":
+        return f(b, s, 3 * heads * d).chunk(3, dim=-1)
+    return f(b, s, heads * d), f(b, n, heads * d), f(b, n, heads * d)
+
+
+def check_attention_core(q, k, v, heads):
+    from audio_diffusion_torch.ops.kernels.attention import (
+        attention_core, attention_core_reference)
+
+    with torch.inference_mode():
+        before = attention_core.launches
+        got = attention_core(q, k, v, heads)
+        again = attention_core(q, k, v, heads)
+        want = attention_core_reference(q, k, v, heads)
+    assert attention_core.launches - before == 2
+    assert torch.equal(got, again)
+    diff, want = got.float() - want.float(), want.float()
+    rel = (diff.norm() / want.norm()).item()
+    err = diff.abs().max().item()
+    assert rel <= 2.0 ** -10, rel
+    assert err <= 2.0 ** -5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,s,n", ATTN_SHAPES)
+def test_attention_core_kernel_matches_plain(cuda_device, kind, s, n):
+    """The README nets' shapes: self-attention at levels 5-8, cross-attention
+    at levels 3-8 over 64 keys, 8 heads of 64, at item batch 1, 2 (CFG) and
+    8 (the service); q, k and v as the projections give them."""
+    for b in (1, 2, 8):
+        check_attention_core(*attention_inputs(kind, s, n, b, 8, 64, b,
+                                               cuda_device), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,s,n,heads,d", [
+    ("self", 200, 200, 3, 48), ("cross", 65, 130, 2, 128),
+    ("cross", 64, 1, 1, 16), ("self", 100, 100, 4, 112)])
+def test_attention_core_kernel_other_shapes(cuda_device, kind, s, n, heads, d):
+    """Lengths off the 64-row and 64-key tiles, and head widths that take
+    several wgmma widths."""
+    check_attention_core(*attention_inputs(kind, s, n, 2, heads, d, 7,
+                                           cuda_device), heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [128, 256, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_matches_plain(cuda_device, channels, dtype):
+    """The README nets' attention widths, over a level's rows at batch 2."""
+    from audio_diffusion_torch.ops.kernels.attention import (
+        layer_norm, layer_norm_reference)
+
+    rs = np.random.default_rng(channels)
+
+    def f(*shape, dtype, scale=1.0, offset=0.0):
+        a = rs.standard_normal(shape).astype(np.float32) * scale + offset
+        return torch.from_numpy(a).to(device=cuda_device, dtype=dtype)
+
+    rows = 2 * 2 ** 20 // channels // 64 * 64  # the level's B·S at batch 2
+    x = f(rows, channels, dtype=dtype, scale=3.0, offset=0.5)
+    scale = f(channels, dtype=dtype, scale=0.2, offset=1.0)
+    bias = f(channels, dtype=dtype, scale=0.2)
+    with torch.inference_mode():
+        before = layer_norm.launches
+        got = layer_norm(x, scale, bias, 1e-6, dtype)
+        again = layer_norm(x, scale, bias, 1e-6, dtype)
+        want = layer_norm_reference(x, scale, bias, 1e-6, dtype)
+    assert layer_norm.launches - before == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+ATTN_NET = dict(in_channels=2, channels=[8, 32, 64], factors=[1, 4, 2],
+                items=[1, 2, 1], attentions=[0, 0, 1],
+                cross_attentions=[0, 0, 1], attention_heads=2,
+                attention_features=64, modulation_features=64,
+                embedding_features=32, use_embedding_cfg=True,
+                embedding_max_length=8, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_attention_launch_gate(cuda_device):
+    """A guided bf16 sample launches one attention core and two LayerNorms
+    per attention item and pass (a self- and a cross-attention item on each
+    side of the deepest level), and the item kernel as before; a training
+    loss under autograd launches none of the attention kernels."""
+    from audio_diffusion_torch.ops.kernels.attention import (attention_core,
+                                                             layer_norm)
+
+    model = DiffusionModel(net_t=UNetV0, **ATTN_NET)
+    noise = torch.randn(1, 2, 256, device=cuda_device)
+    emb = torch.randn(1, 8, 32, device=cuda_device)
+    def counters():
+        return (attention_core.launches, layer_norm.launches,
+                fused_resnet_item.launches)
+
+    before = counters()
+    out = model.sample(noise, embedding=emb, embedding_scale=3.0, num_steps=3)
+    assert torch.isfinite(out).all()
+    items = 2 * 2  # self and cross, down and up
+    assert tuple(a - b for a, b in zip(counters(), before)) == (
+        3 * items, 3 * 2 * items, 3 * 2 * (1 + 2 + 1))
+    before = counters()
+    loss = model(torch.randn(2, 2, 256, device=cuda_device),
+                 embedding=torch.randn(2, 8, 32, device=cuda_device))
+    loss.backward()
+    assert counters()[:2] == before[:2]
+
+
+@pytest.mark.cuda
+def test_export_on_card_records_the_attention_operators(cuda_device,
+                                                        tmp_path):
+    """On the card an exported step with attention items holds one
+    attention-core node and two (ATen) LayerNorm nodes per item, beside the
+    item operator, and the artifact gives model.sample's bits."""
+    from audio_diffusion_torch import export_sampler, load_sampler
+
+    model = DiffusionModel(net_t=UNetV0, in_channels=2, channels=[8, 32],
+                           factors=[1, 2], items=[1, 1], attentions=[0, 1],
+                           attention_heads=2, attention_features=64,
+                           modulation_features=32, dtype=torch.bfloat16)
+    export_sampler(model, tmp_path, length=256, num_steps=3)
+    program = torch.export.load(tmp_path / "step.pt2")
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    count = lambda name: sum(name in t for t in targets)  # noqa: E731
+    assert (count("attention_core"), count("layer_norm"),
+            count("fused_resnet_item")) == (2, 4, 4)
+    sampler, _ = load_sampler(tmp_path)
+    noise = torch.randn(1, 2, 256, device=cuda_device)
+    assert torch.equal(sampler(model.params, noise),
+                       model.sample(noise, num_steps=3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("guided", [False, True])
 def test_distill_stage_step_launch_counts(cuda_device, guided):
